@@ -1,0 +1,30 @@
+"""Architecture registry: ``get_config(arch_id)`` / ``list_archs()``.
+
+Only the architectures the port serves are listed; the others stay in the
+reference package until their model family is ported (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ArchConfig, MoEConfig  # noqa: F401
+
+_ARCH_MODULES: Dict[str, str] = {
+    "stablelm-1.6b": "stablelm_1_6b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    smoke = arch_id.endswith("-smoke")
+    base_id = arch_id[: -len("-smoke")] if smoke else arch_id
+    if base_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list_archs()}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[base_id]}")
+    cfg: ArchConfig = mod.CONFIG
+    return cfg.reduced() if smoke else cfg

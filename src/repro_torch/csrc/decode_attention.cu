@@ -1,0 +1,46 @@
+// Paged single-token attention for the pure-decode step (decode_fn).
+//
+// Replaces the TPU kernel repro/kernels/decode_attention.py:72
+// (decode_attention, body _kernel), which read contiguous cache rows
+// [B, S, Kv, hd] up to lengths[b]; this kernel reads K/V through the
+// [B, nb] block table instead of a gathered view, over
+// length = positions[b] + 1 slots.  Grid: one block per (row, kv head).
+// Body, bound and design: paged_attention.cuh.  Split-K over long
+// caches is left for later (B * Kv blocks must fill the 132 SMs alone).
+#include "paged_attention.cuh"
+
+__global__ void __launch_bounds__(paged::kThreads)
+paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k_cache,
+                              const __nv_bfloat16* __restrict__ v_cache,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ positions,
+                              __nv_bfloat16* __restrict__ out, int H, int Kv,
+                              int hd, int bs, int nb, int n_blocks, int tile,
+                              float scale) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int pos = positions[b];
+  assert(pos >= 0);  // a corrupt batch fails loudly
+  paged::attend(q + (size_t)b * H * hd, k_cache, v_cache,
+                tables + (size_t)b * nb, pos, kh, Kv, H / Kv, hd, bs, nb,
+                n_blocks, tile, scale, out + (size_t)b * H * hd);
+}
+
+extern "C" int paged_decode_attention(const void* q, const void* k_cache,
+                                      const void* v_cache, const void* tables,
+                                      const void* positions, void* out, int B,
+                                      int H, int Kv, int hd, int bs, int nb,
+                                      int n_blocks, int tile, float scale,
+                                      void* stream) {
+  if (B == 0) return 0;
+  const size_t smem = sizeof(float) * paged::smem_floats(H / Kv, hd, tile);
+  cudaError_t err = paged::prepare_smem(paged_decode_attention_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_attention_kernel<<<dim3(B, Kv), paged::kThreads, smem,
+                                  (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
+      (const __nv_bfloat16*)v_cache, (const int*)tables,
+      (const int*)positions, (__nv_bfloat16*)out, H, Kv, hd, bs, nb, n_blocks,
+      tile, scale);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,147 @@
+"""Where the time of one engine iteration goes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile [--arch stablelm-1.6b]
+
+Splits a full-width model into two pipeline stages on one card (random
+weights from ``--seed``) and times the pieces an iteration of the
+chunked policy is made of, at the shapes of ``chip_smoke.py``'s engine
+phase:
+
+* the first stage's decode step (B = 4 rows, contexts of 300-600 tokens)
+  and chunk step (T = 256 packed tokens over 4 rows): host time per step
+  (wall clock around synchronised steps), device time (CUDA events), the
+  device's busy share of the step and its kernels by device time
+  (``torch.profiler``);
+* the last stage's decode step including the logits' copy to the host;
+* the CPU sampler on those logits, with the serving defaults' params
+  (temperature, top-k, top-p, penalties) and greedy.
+
+Prints one line per piece and, last, one JSON object with every number
+beside the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core.engine import split_for_pp
+from repro_torch.core.sampler import ColumnWiseSampler
+from repro_torch.core.sampling_params import SamplingParams
+from repro_torch.models.registry import build_model
+
+BS = 16
+
+
+def _host_ms(fn, reps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _device_ms(fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _profile(fn, reps: int, top: int = 6):
+    """(device busy share of the wall time, [(kernel, device ms/step)])."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in kernels)
+    kernels.sort(key=lambda kt: -kt[1])
+    return busy / wall_us, [(k[:60], t / reps / 1e3) for k, t in kernels[:top]]
+
+
+def _piece(name, fn, reps, results, profile=True):
+    for _ in range(3):
+        fn()
+    row = {"host_ms": _host_ms(fn, reps), "device_ms": _device_ms(fn, reps)}
+    if profile:
+        row["busy_share"], row["top_kernels_ms"] = _profile(fn, reps)
+    results[name] = row
+    print(f"{name}: {json.dumps(row)}", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    dev = resolve_device(None)
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(args.seed, device=dev)
+    first, last = split_for_pp(model, params, 2)
+    n_blocks = 4 * 40 + 1
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    tables = i32(np.arange(4 * 40).reshape(4, 40))
+    caches = [model.paged_cache(s.n_groups, n_blocks, BS, device=dev)
+              for s in (first, last)]
+    results = {}
+
+    tok, pos = i32([1, 2, 3, 4]), i32([500, 400, 300, 600])
+    _piece("first stage decode step (B=4)",
+           lambda: first.decode_fn(first.params, caches[0], tok, pos, tables),
+           args.reps, results)
+    span = i32(np.arange(256))
+    span_pos = i32(np.concatenate([np.arange(64) + 100 * i for i in range(4)]))
+    span_seq = i32(np.repeat(np.arange(4), 64))
+    last_idx = i32([63, 127, 191, 255])
+    _piece("first stage chunk step (T=256)",
+           lambda: first.chunk_fn(first.params, caches[0], span, span_pos,
+                                  span_seq, last_idx, tables),
+           args.reps, results)
+    hidden = torch.randn(4, cfg.d_model, device=dev).to(torch.bfloat16)
+    logits = []
+    _piece("last stage decode step + logits to host",
+           lambda: logits.append(last.decode_fn(
+               last.params, caches[1], hidden, pos, tables).float().cpu().numpy()),
+           args.reps, results, profile=False)
+
+    sampler = ColumnWiseSampler(cfg.vocab_size, 4, pp_degree=2, max_len=640,
+                                seed=args.seed)
+    for name, sp in (("sampler (serving params)", SamplingParams(
+            temperature=0.8, top_k=40, top_p=0.95, frequency_penalty=0.2,
+            presence_penalty=0.1)), ("sampler (greedy)",
+                                     SamplingParams(greedy=True))):
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            sampler.sample(logits[-1], [sp] * 4, slot=0, seq_ids=[0, 1, 2, 3])
+        results[name] = {"host_ms": (time.perf_counter() - t0) / args.reps * 1e3}
+        print(f"{name}: {json.dumps(results[name])}", flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"arch": cfg.name, "card": smi, "pieces": results}))
+
+
+if __name__ == "__main__":
+    main()

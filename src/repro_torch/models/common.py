@@ -1,0 +1,61 @@
+"""Shared model numerics: RMSNorm, RoPE, and the port's random init.
+
+Each function follows the reference's (``repro.models.common``) dtype
+casts op for op, so the parity tests compare like with like.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * inv).to(x.dtype) * w
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> (cos, sin) of shape [..., head_dim/2], fp32."""
+    half = head_dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., n_heads, head_dim]; cos/sin broadcastable [..., 1, head_dim/2]."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     -1).to(x.dtype)
+
+
+def init_tensor(shape, init: str, generator: torch.Generator, *,
+                device, fan_in: int = 0,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """One parameter under the reference's init schemes: ``ones``,
+    ``small`` (N(0, 0.02^2)) or ``normal`` (N(0, 1/fan_in)), drawn in
+    fp32 from ``generator`` (which must live on ``device``) and cast."""
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    fan = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+    scale = 0.02 if init == "small" else 1.0 / math.sqrt(max(fan, 1))
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declarative parameter: shape + init scheme (see :func:`init_tensor`)."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | ones | small
+    fan_in: int = 0

@@ -1,0 +1,65 @@
+"""The layer-group loop shared by the model and the pipeline stages.
+
+A model is: embed -> Stack -> final norm -> lm head.  A Stack is ``n``
+groups of layers whose parameters (and KV caches) are stacked on a
+leading ``[groups, ...]`` axis, as in the reference; where the reference
+scans over that axis, the port loops in Python.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.models.common import ParamSpec
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Per-call context threaded through block apply functions."""
+
+    mode: str                      # decode | chunk
+    positions: torch.Tensor        # decode: [B]; chunk: [T]
+    rope_cos: Optional[torch.Tensor] = None
+    rope_sin: Optional[torch.Tensor] = None
+    # chunk mode (packed ragged layout): batch row of each packed token [T]
+    seq_idx: Optional[torch.Tensor] = None
+    # paged KV layout: per-row physical block ids [B, nb]; cache leaves are
+    # block-major [n_blocks, block_size, ...] and attention reads and
+    # writes through the table
+    block_tables: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class Stack:
+    """``apply(group_params, x, ctx, cache_group) -> x``; the group's
+    cache is updated in place."""
+
+    n: int
+    specs: PyTree
+    apply: Callable
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_specs(stack: Stack) -> PyTree:
+    """Per-group specs with the leading ``[groups]`` axis added."""
+    return tree_map(lambda s: ParamSpec((stack.n,) + s.shape, s.init,
+                                        s.fan_in), stack.specs)
+
+
+def run_stack(stack: Stack, params_stacked: PyTree, x: torch.Tensor,
+              ctx: Ctx, cache_stacked: PyTree) -> torch.Tensor:
+    """Run the ``n`` groups in order; caches are written in place."""
+    for i in range(stack.n):
+        x = stack.apply(tree_map(lambda p: p[i], params_stacked), x, ctx,
+                        tree_map(lambda c: c[i], cache_stacked))
+    return x

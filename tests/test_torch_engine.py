@@ -1,0 +1,216 @@
+"""The port's SiPipe engine against the reference engine on the same
+workload: stablelm-1.6b-smoke with the reference's weights (through
+``params_from_jax``), the paged KV layout and a span policy, on the CPU.
+
+Both engines must make the same scheduling decisions, iteration for
+iteration: members, spans, sampling points and, under the synchronous
+NaivePPEngine, block tables and CoW copies too.  (Under SiPipeEngine a
+finished sequence's blocks return to the free list on the sampling
+thread, concurrently with the next schedule, so physical block ids
+depend on timing, in the reference as in the port; there the trace is
+compared without them.)  In fp32 (parameters and KV cache, in both
+engines) greedy streams must be equal token for token.  In bf16 the two
+frameworks round differently (tests/test_torch_model.py), so a near-tie
+between the top two logits can flip a greedy token; there the schedule,
+which does not depend on token values, is compared, and the streams
+only by length."""
+import os
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.core import engine as ref_engine
+from repro.core.sampling_params import SamplingParams as RefSamplingParams
+from repro.models import build_model as ref_build_model
+from repro_torch import resolve_device
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_config
+from repro_torch.core import engine
+from repro_torch.core.sampling_params import SamplingParams
+from repro_torch.kernels import decode_attention as kda
+from repro_torch.kernels import span_attention as ksa
+from repro_torch.launch import serve
+from repro_torch.models.registry import build_model
+from repro_torch.models.stacked import tree_map
+
+ARCH = "stablelm-1.6b-smoke"
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+@pytest.fixture(scope="module")
+def models():
+    ref_model = ref_build_model(ref_get_config(ARCH))
+    ref_params = ref_model.init(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params),
+                             device="cpu")
+    return (ref_model, ref_params), (build_model(get_config(ARCH)), params)
+
+
+def _prompts(lens, seed=0):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(2, 256, size=n))) for n in lens]
+
+
+def _reference_in_fp32(eng):
+    """The reference engine allocates its KV cache and takes hidden states
+    between stages in bf16 whatever the parameters' dtype.  For an fp32
+    parity run, give it an fp32 cache (before any request runs) and an
+    fp32 copy of its ``recv_hidden`` (engine.py:611), as the port has."""
+    for w in eng.stages:
+        w.cache = jax.tree.map(lambda c: c.astype(jnp.float32), w.cache)
+
+    def recv_hidden(stage, iteration):
+        deadline = time.monotonic() + 60
+        with eng._hcv:
+            while (stage, iteration) not in eng._hidden:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"hidden for stage {stage}")
+                eng._hcv.wait(1.0)
+            ch = eng._hidden.pop((stage, iteration))
+        return jnp.asarray(ch.recv()["hidden"], jnp.float32)
+
+    eng.recv_hidden = recv_hidden
+
+
+def _run(pkg, engine_cls, sp_cls, model, params, prompts, *, n_new, policy,
+         n=1, chunk=6, kv_blocks=None):
+    cfg = pkg.EngineConfig(pp_degree=2, max_batch=2, max_seq_len=64,
+                           n_samplers=2, prefill_chunk_tokens=chunk,
+                           scheduling_policy=policy, kv_layout="paged",
+                           kv_block_size=8, kv_blocks=kv_blocks)
+    eng = getattr(pkg, engine_cls)(model, params, cfg)
+    if pkg is ref_engine and params["embed"].dtype == jnp.float32:
+        _reference_in_fp32(eng)
+    trace = []
+    schedule = eng.scheduler.schedule
+
+    def record(it):
+        s = schedule(it)
+        if s is not None:
+            trace.append((s.iteration, list(s.seq_ids), s.spans,
+                          s.needs_sample, s.block_tables.tolist(),
+                          None if s.block_copies is None
+                          else s.block_copies.tolist()))
+        return s
+
+    eng.scheduler.schedule = record
+    for p in prompts:
+        eng.add_request(p, sp_cls(greedy=True, max_new_tokens=n_new, n=n))
+    done = sorted(eng.run(), key=lambda s: s.seq_id)
+    streams = [(s.seq_id, list(s.output_ids)) for s in done]
+    return streams, trace, eng.metrics()
+
+
+def _both(models, engine_cls, dtype, policy, lens, n_new, n, kv_blocks):
+    (ref_model, ref_params), (model, params) = models
+    ref_params = jax.tree.map(lambda a: a.astype(dtype), ref_params)
+    params = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+    prompts = _prompts(lens)
+    kw = dict(n_new=n_new, policy=policy, n=n, kv_blocks=kv_blocks)
+    ref = _run(ref_engine, engine_cls, RefSamplingParams, ref_model,
+               ref_params, prompts, **kw)
+    port = _run(engine, engine_cls, SamplingParams, model, params, prompts,
+                **kw)
+    for streams, trace, m in (ref, port):
+        assert len(trace) > len(prompts)
+        assert len(streams) == len(prompts)  # run() returns the primaries
+        assert all(len(s) == n_new for _, s in streams)
+        assert m["tokens"] == len(prompts) * n * n_new
+    if dtype == "float32":
+        assert port[0] == ref[0]
+    return ref, port
+
+
+@pytest.mark.parametrize("dtype,policy,lens,n_new,n,kv_blocks", [
+    ("float32", "chunked", [13, 5, 21, 9], 6, 1, None),
+    ("bfloat16", "chunked", [13, 5, 21, 9], 6, 1, None),
+    ("float32", "disaggregated", [11, 7, 17], 5, 1, None),
+    # parallel sampling: forks share the prompt's blocks copy-on-write
+    # under block pressure, so CoW copies and preemption both run
+    ("float32", "chunked", [14, 10], 5, 2, 10),
+])
+def test_naive_engine_trace_and_streams_match_reference(
+        models, dtype, policy, lens, n_new, n, kv_blocks):
+    (_, ref_trace, ref_m), (_, trace, m) = _both(
+        models, "NaivePPEngine", dtype, policy, lens, n_new, n, kv_blocks)
+    assert len(trace) == len(ref_trace)
+    for got, want in zip(trace, ref_trace):
+        assert got == want
+    for key in ("tokens", "requests_finished", "kv_preemptions",
+                "kv_cow_copies", "kv_prefix_hits", "kv_table_widths",
+                "incremental_hits", "meta_rebuilds", "policy"):
+        assert m[key] == ref_m[key], key
+    if n > 1:
+        assert any(t[5] for t in trace)      # CoW copies were applied
+
+
+@pytest.mark.parametrize("policy,lens,n_new", [
+    ("chunked", [13, 5, 21, 9], 6),
+    ("disaggregated", [11, 7, 17], 5),
+])
+def test_sipipe_engine_streams_and_schedule_match_reference(
+        models, policy, lens, n_new):
+    (_, ref_trace, _), (_, trace, _) = _both(
+        models, "SiPipeEngine", "float32", policy, lens, n_new, 1, None)
+    assert [t[:4] for t in trace] == [t[:4] for t in ref_trace]
+
+
+def test_unported_configurations_raise(models):
+    _, (model, params) = models
+    with pytest.raises(NotImplementedError, match="monolithic"):
+        engine.SiPipeEngine(model, params, engine.EngineConfig(
+            scheduling_policy="auto"))
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        engine.SiPipeEngine(model, params, engine.EngineConfig(
+            kv_layout="contiguous", prefill_chunk_tokens=8))
+    with pytest.raises(ValueError, match="kv_layout"):
+        engine.SiPipeEngine(model, params, engine.EngineConfig(
+            kv_layout="virtual", prefill_chunk_tokens=8))
+
+
+def test_entry_points_default_to_cuda_and_refuse_the_cpu_silently(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(ARCH, chunk_tokens=8, verbose=False)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_cpu_run_counts_no_kernel_launches():
+    before = (ksa.paged_span_attention.launches,
+              kda.paged_decode_attention.launches)
+    m = serve.run(ARCH, requests=3, max_new_tokens=4, chunk_tokens=8,
+                  device="cpu", verbose=False)
+    assert m["finished"] == 3 and m["device"] == "cpu"
+    assert m["policy"] == "chunked" and m["kv_layout"] == "paged"
+    assert (ksa.paged_span_attention.launches,
+            kda.paged_decode_attention.launches) == before
+
+
+def test_port_runs_without_jax_or_the_reference():
+    """``import repro_torch`` and a CPU engine run load neither ``jax``
+    nor any module of ``repro``."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "m = serve.run('stablelm-1.6b-smoke', requests=2, max_new_tokens=3,"
+        " chunk_tokens=8, device='cpu', verbose=False)\n"
+        "assert m['finished'] == 2, m['finished']\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
