@@ -9,28 +9,46 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 
 1. build  — compiles every kernel source under ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the seconds.
-2. kernels — runs each kernel at the main path's shapes (stablelm-1.6b:
-   H = Kv = 32, hd = 64, 16-slot pages) and at one GQA shape (g = 4, with
+2. kernels — runs each of the five kernels at the main path's shapes
+   (stablelm-1.6b: H = Kv = 32, hd = 64, 16-slot pages; prefill of 4
+   right-padded prompts, S = 397) and at one GQA shape (g = 4, with
    decode contexts as short as one slot), holds it against its plain
    PyTorch version run in fp32 on the same inputs (|error| <=
    KERNEL_REL * |plain| + KERNEL_ABS), and times kernel, plain version
-   (bf16, as the port runs it) and one ``scaled_dot_product_attention``
-   call on the gathered view (a yardstick the port never calls) beside
-   the kernel's memory/compute bound.
+   (bf16, as the port runs it) and, where one exists, one PyTorch call
+   computing the same function (``scaled_dot_product_attention``; a
+   yardstick the port never calls) beside the kernel's bound.  The int8
+   span kernel runs at both p-quantization tiles: one page (the Pallas
+   kernel's) and the engine's (the reference engine's kv_block = 512).
 3. engine — serves full-width stablelm-1.6b (random weights from SEED)
-   through the port's SiPipeEngine (pp = 2, chunked policy, 256-token
-   chunks, paged KV): greedy tokens of a 2-request run must equal
-   NaivePPEngine's; then, with every launch counter set to 0, 8 requests
-   of 64-512 prompt tokens and 32 new tokens each must all finish, and
-   both kernels must have launched.  A smoke-size model's logits on the
-   card must agree with the same model on the CPU.
+   through the port's SiPipeEngine (pp = 2, paged KV), each path with
+   every launch counter set to 0 just before it and read just after:
+   the chunked policy (256-token chunks; greedy tokens of a 2-request
+   run must equal NaivePPEngine's, then 8 requests of 64-512 prompt
+   tokens and 32 sampled tokens each must all finish); the default
+   policy (monolithic prefill, no chunk budget); and the int8 KV cache
+   under the chunked policy and under monolithic prefill.  The last
+   three serve the same 8 prompts greedily to 32 tokens, and SiPipe's
+   streams must equal NaivePPEngine's (int8 monolithic: printed beside
+   int8 chunked, which differs from it by design).
+4. reference — a smoke-size model's logits on the card must agree with
+   the same model on the CPU: a chunk step then a decode step, and a
+   prefill then a decode step with a bf16 and with an int8 cache.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.
+
+The int8 monolithic and chunked streams are compared, not required to
+be equal: monolithic prefill attends full-precision K/V and chunks the
+int8 cache.  The reference pins their agreement on its own smoke weights
+and prompts; the port holds that pin on the CPU with those weights
+(tests/test_torch_engine.py::test_chunked_int8_kv_token_identical_to_
+monolithic), which this script cannot load.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -51,6 +69,7 @@ KERNEL_ABS = 1e-5
 LOGIT_TOL = 0.1        # smoke model logits, card vs CPU (bf16 matmuls)
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 BF16_FLOP_S = 989e12   # H100 SXM dense bf16 tensor-core rate
+INT8_OP_S = 1979e12    # H100 SXM dense int8 tensor-core rate
 
 
 def _smi() -> str:
@@ -103,14 +122,27 @@ def _paged_case(gen, positions, rows, n_rows, h, kv, hd, bs, dev):
                 positions=t(positions), rows=t(rows), ctx=ctx)
 
 
-def _bound(case, h, hd):
-    """Least time for the function: each row's K/V prefix read once, q
-    and the output once (bytes); 4*H*hd flops per visible slot."""
+def _bound(case, h, hd, quant=False):
+    """Least time for the function: each row's K/V prefix read once (int8
+    values and bf16 scales for the int8 cache), q and the output once
+    (bytes); 4*H*hd operations per visible slot, at the bf16 or int8
+    tensor-core rate."""
     kv, n = case["k"].shape[2], case["q"].shape[0]
-    kv_bytes = int(case["ctx"].sum()) * kv * hd * 2 * 2
+    per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
+    kv_bytes = int(case["ctx"].sum()) * kv * per_slot
     io_bytes = 2 * n * h * hd * 2 + 4 * (case["tables"].numel() + 2 * n)
-    flops = 4 * h * hd * int((case["positions"].long() + 1).sum())
-    t_bytes, t_ops = (kv_bytes + io_bytes) / HBM_BYTES_S, flops / BF16_FLOP_S
+    ops = 4 * h * hd * int((case["positions"].long() + 1).sum())
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_S
+    t_ops = ops / (INT8_OP_S if quant else BF16_FLOP_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _flash_bound(b, s, h, kv, hd, causal_pairs):
+    """Least time for causal prefill attention: q, k, v read once and the
+    output written once (bytes); 4*hd flops per visible (query, key) pair
+    and head, at the bf16 tensor-core rate."""
+    t_bytes = (2 * b * s * (2 * h + 2 * kv) * hd + 4 * s) / HBM_BYTES_S
+    t_ops = 4 * hd * h * b * causal_pairs / BF16_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -139,11 +171,50 @@ def _sdpa_args(case, h, hd, decode: bool):
     return q.transpose(1, 2), k, v, mask[:, None]
 
 
+def _held(name, kernel, plain, args, label, **kw):
+    """One launch of ``kernel`` (not counted) held against ``plain`` run
+    in fp32 on the same values; returns the max |error|."""
+    import torch
+    launches = kernel.launches
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    kernel.launches = launches
+    ref = plain(*[a.float() if a.is_floating_point() else a for a in args],
+                **kw)
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
+    excess = float((diff - KERNEL_REL * ref.abs()).max())
+    finite = bool(torch.isfinite(out.float()).all())
+    print(f"kernel {name} {label}: max_abs_err={err:.3e} "
+          f"max(|err| - {KERNEL_REL:.2e}*|plain|)={excess:.3e} "
+          f"(tol {KERNEL_ABS:.0e}) finite={finite}", flush=True)
+    if not finite or not excess <= KERNEL_ABS:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def _kernel_ms(kernel, fn, reps=50):
+    """Kernel time; the timing launches do not count."""
+    launches = kernel.launches
+    ms = _time_ms(fn, reps=reps)
+    kernel.launches = launches
+    return ms
+
+
+def _quant(case):
+    """The bf16 case's K/V cache quantized as the engine stores it."""
+    from repro_torch.models.attention import quantize_kv
+    (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
+    return [case["q"], k8, ks, v8, vs, case["tables"], case["positions"]]
+
+
 def phase_kernels(dev, gen, card):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import kv_tile
 
     # main-path shapes: a 256-token chunk over 4 ragged rows; a decode
     # batch of 8 with contexts of 100-1000 tokens
@@ -175,30 +246,15 @@ def phase_kernels(dev, gen, card):
                     case["positions"]]
             if not decode:
                 args.append(case["rows"])
-            launches = kernel.launches
-            out = kernel(*args)
-            torch.cuda.synchronize()
-            ref = plain(*[a.float() if a.is_floating_point() else a
-                          for a in args])
-            diff = (out.float() - ref).abs()
-            err = float(diff.max())
-            excess = float((diff - KERNEL_REL * ref.abs()).max())
-            finite = bool(torch.isfinite(out.float()).all())
-            print(f"kernel {name} H={h} Kv={kv} hd={hd}: max_abs_err={err:.3e}"
-                  f" max(|err| - {KERNEL_REL:.2e}*|plain|)={excess:.3e} "
-                  f"(tol {KERNEL_ABS:.0e}) finite={finite}", flush=True)
-            if not finite or not excess <= KERNEL_ABS:
-                raise AssertionError(f"{name} disagrees with its plain version")
+            err = _held(name, kernel, plain, args, f"H={h} Kv={kv} hd={hd}")
             if kv != h:
-                kernel.launches = launches      # comparisons do not count
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _time_ms(lambda: kernel(*args), reps=50)
+            ms = _kernel_ms(kernel, lambda: kernel(*args))
             plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
             q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4, enable_gqa=True), reps=20)
-            kernel.launches = launches
             bound_ms, bound_by = _bound(case, h, hd)
             print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
@@ -208,56 +264,119 @@ def phase_kernels(dev, gen, card):
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
         results.append((kernel, entry))
+
+    # the kernels of monolithic prefill and of the int8 cache draw their
+    # inputs from a generator of their own, so the engine phase's prompts
+    # stay those of the runs before them
+    gen2 = np.random.default_rng(SEED + 1)
+
+    # flash: the prefill of 4 right-padded prompts, S = 397 (no power of
+    # two, no tile multiple), then GQA g = 4
+    b, s = 4, 397
+    flash_src = "src/repro_torch/csrc/flash_attention.cu"
+    entry = None
+    for kv in (32, 8):
+        q, k, v = (torch.tensor(gen2.standard_normal((b, s, n, hd), np.float32),
+                                device=dev).to(torch.bfloat16)
+                   for n in (h, kv, kv))
+        qpos = torch.arange(s, dtype=torch.int32, device=dev)
+        args = [q, k, v, qpos]
+        err = _held("flash_attention", kfa.flash_attention,
+                    kfa.flash_attention_plain, args,
+                    f"B={b} S={s} H={h} Kv={kv} hd={hd}")
+        if kv != h:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            continue
+        ms = _kernel_ms(kfa.flash_attention, lambda: kfa.flash_attention(*args))
+        plain_ms = _time_ms(lambda: kfa.flash_attention_plain(*args), reps=3,
+                            warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=20)
+        bound_ms, bound_by = _flash_bound(b, s, h, kv, hd, s * (s + 1) // 2)
+        print(f"kernel flash_attention: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
+              f"({bound_by}) on {card}", flush=True)
+        entry = dict(name="flash_attention", route="cuda", source=flash_src,
+                     replaces="src/repro/kernels/flash_attention.py:80",
+                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    results.append((kfa.flash_attention, entry))
+
+    # the int8 kernels: no single PyTorch call computes them (library_ms
+    # null).  Span: the chunk above, at the engine's p tile (kv_block 512
+    # over the 32-page table: 512 slots) and at one page (16)
+    quant_specs = [
+        ("paged_span_attention_quant", ksa.paged_span_attention_quant,
+         ksa.paged_span_attention_quant_plain, span_pos, span_pos, span_rows,
+         len(spans), False, "src/repro_torch/csrc/paged_span_attention_quant.cu",
+         "src/repro/kernels/span_attention.py:656"),
+        ("paged_decode_attention_quant", kda.paged_decode_attention_quant,
+         kda.paged_decode_attention_quant_plain, gen2.integers(100, 1001, 8) - 1,
+         dec_pos_gqa, np.arange(8), 8, True,
+         "src/repro_torch/csrc/decode_attention_quant.cu",
+         "src/repro/models/attention.py:553 (jnp decode_attention_quant; "
+         "no Pallas kernel)"),
+    ]
+    for (name, kernel, plain, pos, pos_gqa, rows, n_rows, decode, src,
+         replaces) in quant_specs:
+        entry = None
+        for kv, p in ((32, pos), (8, pos_gqa)):
+            case = _paged_case(gen2, p, rows, n_rows, h, kv, hd, bs, dev)
+            args = _quant(case)
+            tiles = [None]
+            if not decode:
+                args.append(case["rows"])
+                width = case["tables"].shape[1] * bs
+                tiles = [512, bs] if kv == h else [512]
+            for tile in tiles:
+                kw = {} if tile is None else {"kv_block": tile}
+                label = f"H={h} Kv={kv} hd={hd}" + (
+                    "" if tile is None else f" p-tile={kv_tile(tile, width)}")
+                err = _held(name, kernel, plain, args, label, **kw)
+                if entry is not None:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if kv != h:
+                    continue
+                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                if entry is not None:        # the one-page tile
+                    entry["ms_page_tile"] = ms
+                    print(f"kernel {name}: ms={ms:.4f} at the one-page "
+                          f"p-tile on {card}", flush=True)
+                    continue
+                plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3,
+                                    warmup=1)
+                bound_ms, bound_by = _bound(case, h, hd, quant=True)
+                print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms=null bound_ms={bound_ms:.5f} ({bound_by})"
+                      f" on {card}", flush=True)
+                entry = dict(name=name, route="cuda", source=src,
+                             replaces=replaces, launches=0, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+        results.append((kernel, entry))
     return results
 
 
-def _engine(engine_cls, params, model):
+def _engine(engine_cls, params, model, chunk):
+    """pp = 2, paged KV; ``chunk`` tokens per iteration under the chunked
+    policy, or None: the default policy, monolithic prefill."""
     from repro_torch.core.engine import EngineConfig
     ecfg = EngineConfig(pp_degree=2, max_batch=4, max_seq_len=640,
-                        prefill_chunk_tokens=256,
-                        scheduling_policy="chunked", seed=SEED)
+                        prefill_chunk_tokens=chunk,
+                        scheduling_policy="chunked" if chunk else "auto",
+                        seed=SEED)
     return engine_cls(model, params, ecfg)
 
 
-def phase_engine(dev, gen, kernels, card):
+def _serve(engine_cls, model, params, prompts, sp, chunk, kernels):
+    """Serve ``prompts`` to the end, every launch counter set to 0 just
+    before and read just after.  Returns the streams (by request), the
+    engine's metrics, the wall seconds, the launches and the peak
+    device memory."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
-    from repro_torch.core.sampling_params import SamplingParams
-    from repro_torch.models.registry import build_model
-
-    cfg = get_config("stablelm-1.6b")
-    model = build_model(cfg)
-    t0 = time.monotonic()
-    params = model.init(SEED, device=dev)
-    torch.cuda.synchronize()
-    print(f"engine: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-          f"H={cfg.num_heads} Kv={cfg.num_kv_heads} hd={cfg.resolved_head_dim}"
-          f" vocab={cfg.vocab_size}: init {time.monotonic() - t0:.1f}s",
-          flush=True)
-    prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist()
-               for n in gen.integers(64, 513, 8)]
-
-    # greedy parity at equal composition: SiPipe vs the naive baseline
-    greedy = SamplingParams(greedy=True, max_new_tokens=16)
-    streams = []
-    for cls in (SiPipeEngine, NaivePPEngine):
-        eng = _engine(cls, params, model)
-        for p in prompts[:2]:
-            eng.add_request(p, greedy)
-        done = sorted(eng.run(), key=lambda s: s.seq_id)
-        streams.append([list(s.output_ids) for s in done])
-        del eng
-    print(f"engine: greedy 2-request streams SiPipe == Naive: "
-          f"{streams[0] == streams[1]} ({streams[0][0][:8]}...)", flush=True)
-    if streams[0] != streams[1] or len(streams[0]) != 2:
-        raise AssertionError(f"greedy streams differ: {streams}")
-
-    # the main path: 8 requests, launch counters from zero
-    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
-                        frequency_penalty=0.2, presence_penalty=0.1,
-                        max_new_tokens=32)
-    eng = _engine(SiPipeEngine, params, model)
+    gc.collect()        # the previous run's engine (its threads hold cycles)
+    eng = _engine(engine_cls, params, model, chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k, _ in kernels:
@@ -270,59 +389,166 @@ def phase_engine(dev, gen, kernels, card):
     launches = {e["name"]: k.launches for k, e in kernels}
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics()
-    n_tok = [len(s.output_ids) for s in done]
-    print(f"engine: {len(done)} requests, prompts "
+    streams = [list(s.output_ids)
+               for s in sorted(done, key=lambda s: s.seq_id)]
+    del eng
+    return streams, m, wall, launches, peak
+
+
+def _report(label, prompts, run, card, n_new, must_launch):
+    """Print a path's metrics; fail unless every request finished with
+    ``n_new`` tokens and each kernel in ``must_launch`` launched."""
+    streams, m, wall, launches, peak = run
+    n_tok = [len(x) for x in streams]
+    print(f"engine {label}: {len(streams)} requests, prompts "
           f"{sorted(len(p) for p in prompts)}, new tokens {n_tok}, "
-          f"wall {wall:.3f}s, launches {launches}", flush=True)
-    print(f"engine: throughput {m['throughput_tok_s']:.2f} tok/s, TTFT mean "
-          f"{m['ttft_mean_s'] * 1e3:.2f} ms p99 {m['ttft_p99_s'] * 1e3:.2f} ms, "
-          f"TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms p99 "
-          f"{m['tpot_p99_s'] * 1e3:.2f} ms, peak memory {peak / 2**30:.2f} GiB,"
-          f" stages busy {[round(s['busy_s'], 3) for s in m['stages']]} s "
-          f"on {card}", flush=True)
-    if len(done) != 8 or any(n != 32 for n in n_tok):
-        raise AssertionError(f"not every request finished with 32 tokens: {n_tok}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    for k, e in kernels:
-        e["launches"] = k.launches
-    del eng, params
+          f"wall {wall:.3f}s, policy {m['policy']}, launches {launches}",
+          flush=True)
+    print(f"engine {label}: throughput {m['throughput_tok_s']:.2f} tok/s, "
+          f"TTFT mean {m['ttft_mean_s'] * 1e3:.2f} ms p99 "
+          f"{m['ttft_p99_s'] * 1e3:.2f} ms, TPOT mean "
+          f"{m['tpot_mean_s'] * 1e3:.2f} ms p99 {m['tpot_p99_s'] * 1e3:.2f} "
+          f"ms, peak memory {peak / 2**30:.2f} GiB, stages busy "
+          f"{[round(x['busy_s'], 3) for x in m['stages']]} s on {card}",
+          flush=True)
+    if len(streams) != len(prompts) or any(n != n_new for n in n_tok):
+        raise AssertionError(f"{label}: not every request finished with "
+                             f"{n_new} tokens: {n_tok}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the {label} path")
+    return launches
+
+
+def phase_engine(dev, gen, kernels, card):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
+    from repro_torch.core.sampling_params import SamplingParams
+    from repro_torch.models.registry import ModelOptions, build_model
+
+    cfg = get_config("stablelm-1.6b")
+    model = build_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"engine: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"H={cfg.num_heads} Kv={cfg.num_kv_heads} hd={cfg.resolved_head_dim}"
+          f" vocab={cfg.vocab_size}: init {time.monotonic() - t0:.1f}s",
+          flush=True)
+    prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist()
+               for n in gen.integers(64, 513, 8)]
+    entries = {e["name"]: e for _, e in kernels}
+
+    def serve(cls, mdl, sp, chunk, reqs=prompts):
+        return _serve(cls, mdl, params, reqs, sp, chunk, kernels)
+
+    def same(label, a, b):
+        print(f"engine {label}: greedy SiPipe == Naive: {a == b} "
+              f"({a[0][:8]}...)", flush=True)
+        if a != b:
+            raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
+
+    # chunked policy: greedy parity at equal composition on 2 requests,
+    # then the 8-request sampled run
+    greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
+    same("chunked 2-request",
+         *(serve(cls, model, greedy16, 256, prompts[:2])[0]
+           for cls in (SiPipeEngine, NaivePPEngine)))
+    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                        frequency_penalty=0.2, presence_penalty=0.1,
+                        max_new_tokens=32)
+    launches = _report("chunked", prompts, serve(SiPipeEngine, model, sp, 256),
+                       card, 32, ("paged_span_attention",
+                                  "paged_decode_attention"))
+    for name in ("paged_span_attention", "paged_decode_attention"):
+        entries[name]["launches"] = launches[name]
+
+    # (a) the default policy: monolithic prefill, no chunk budget
+    greedy = SamplingParams(greedy=True, max_new_tokens=32)
+    run = serve(SiPipeEngine, model, greedy, None)
+    launches = _report("monolithic", prompts, run, card, 32,
+                       ("flash_attention", "paged_decode_attention"))
+    entries["flash_attention"]["launches"] = launches["flash_attention"]
+    same("monolithic", run[0], serve(NaivePPEngine, model, greedy, None)[0])
+
+    # (b) the int8 KV cache (same weights), chunked then monolithic
+    model_q = build_model(cfg, ModelOptions(kv_quant=True))
+    run = serve(SiPipeEngine, model_q, greedy, 256)
+    launches = _report("int8 chunked", prompts, run, card, 32,
+                       ("paged_span_attention_quant",
+                        "paged_decode_attention_quant"))
+    for name in ("paged_span_attention_quant", "paged_decode_attention_quant"):
+        entries[name]["launches"] = launches[name]
+    chunked_q = run[0]
+    same("int8 chunked", chunked_q,
+         serve(NaivePPEngine, model_q, greedy, 256)[0])
+    run = serve(SiPipeEngine, model_q, greedy, None)
+    _report("int8 monolithic", prompts, run, card, 32,
+            ("flash_attention", "paged_decode_attention_quant"))
+    # monolithic prefill attends full-precision K/V, chunks the int8
+    # cache: the streams may part where a near-tie flips (docstring)
+    mono_q = run[0]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+             for x, y in zip(mono_q, chunked_q)]
+    equal = sum(a == b for x, y in zip(mono_q, chunked_q)
+                for a, b in zip(x, y))
+    print(f"engine int8 monolithic vs int8 chunked: "
+          f"{sum(x == y for x, y in zip(mono_q, chunked_q))}/{len(prompts)}"
+          f" streams identical, {equal}/{32 * len(prompts)} tokens equal, "
+          f"first difference at {first}", flush=True)
+    del params
 
 
 def phase_reference(dev):
-    """Smoke-size model: one chunk step and one decode step, on the card
-    (CUDA kernels) and on the CPU (plain versions), same weights."""
+    """Smoke-size model, same weights on the card (CUDA kernels) and on
+    the CPU (plain versions): a chunk step then a decode step over a bf16
+    cache, and a prefill step (written into the paged cache) then a
+    decode step over a bf16 and over an int8 cache."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import split_for_pp
-    from repro_torch.models.registry import build_model
+    from repro_torch.core.engine import split_for_pp, write_prefill
+    from repro_torch.models.registry import ModelOptions, build_model
     from repro_torch.models.stacked import tree_map
 
     cfg = get_config("stablelm-1.6b-smoke")
-    model = build_model(cfg)
-    params = model.init(SEED, device="cpu")
-    logits = {}
-    for d in ("cpu", dev):
-        p = tree_map(lambda x: x.to(d), params)
-        stage = split_for_pp(model, p, 1)[0]
-        cache = model.paged_cache(cfg.num_layers, 9, 16, device=d)
-        t = lambda a: torch.tensor(np.asarray(a, np.int32), device=d)
-        tables = t([[0, 1, 2, 8], [3, 4, 8, 8]])
-        toks = np.random.default_rng(SEED).integers(2, cfg.vocab_size, 60)
-        pos = np.concatenate([np.arange(40), np.arange(20)])
-        seq = np.repeat([0, 1], [40, 20])
-        out1 = stage.chunk_fn(stage.params, cache, t(toks), t(pos), t(seq),
-                              t([39, 59]), tables)
-        out2 = stage.decode_fn(stage.params, cache, t([5, 7]), t([40, 20]),
-                               tables)
-        logits[str(d)] = torch.cat([out1, out2]).float().cpu()
-    a, b = logits["cpu"], logits[str(dev)]
-    err = float((a - b).abs().max())
-    print(f"reference: smoke logits card vs CPU max_abs_err={err:.3e} "
-          f"(tol {LOGIT_TOL}), shape {tuple(b.shape)}", flush=True)
-    if not bool(torch.isfinite(b).all()) or not err <= LOGIT_TOL:
-        raise AssertionError("smoke logits on the card disagree with the CPU")
+    params = build_model(cfg).init(SEED, device="cpu")
+    toks = np.random.default_rng(SEED).integers(2, cfg.vocab_size, 60)
+    padded = np.zeros((2, 40), np.int64)          # right-padded prompts
+    padded[0], padded[1, :23] = toks[:40], toks[37:]
+    for label, quant, first in (("chunk+decode bf16", False, "chunk"),
+                                ("prefill+decode bf16", False, "prefill"),
+                                ("prefill+decode int8", True, "prefill")):
+        model = build_model(cfg, ModelOptions(kv_quant=quant))
+        logits = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda x: x.to(d), params)
+            stage = split_for_pp(model, p, 1)[0]
+            cache = model.paged_cache(cfg.num_layers, 9, 16, device=d)
+            t = lambda a: torch.tensor(np.asarray(a, np.int32), device=d)
+            tables = t([[0, 1, 2, 8], [3, 4, 8, 8]])
+            if first == "chunk":
+                pos = np.concatenate([np.arange(40), np.arange(20)])
+                seq = np.repeat([0, 1], [40, 20])
+                out1 = stage.chunk_fn(stage.params, cache, t(toks), t(pos),
+                                      t(seq), t([39, 59]), tables)
+                lens = [40, 20]
+            else:
+                out1, fresh = stage.prefill_fn(stage.params, t(padded), 0,
+                                               t([39, 22]))
+                write_prefill(cache, fresh, tables, 8)
+                lens = [40, 23]
+            out2 = stage.decode_fn(stage.params, cache, t([5, 7]), t(lens),
+                                   tables)
+            logits[str(d)] = torch.cat([out1, out2]).float().cpu()
+        a, b = logits["cpu"], logits[str(dev)]
+        err = float((a - b).abs().max())
+        print(f"reference {label}: smoke logits card vs CPU max_abs_err="
+              f"{err:.3e} (tol {LOGIT_TOL}), shape {tuple(b.shape)}",
+              flush=True)
+        if not bool(torch.isfinite(b).all()) or not err <= LOGIT_TOL:
+            raise AssertionError(f"{label}: smoke logits on the card "
+                                 f"disagree with the CPU")
 
 
 def main() -> int:

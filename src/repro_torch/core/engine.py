@@ -13,12 +13,15 @@ share all components:
 
 Every stage lives on the device the parameters live on (one card, or the
 CPU for the parity tests); stages run on their own threads, and hidden
-states pass between them through host arrays, as in the reference.  This
-slice runs the span scheduling policies (chunked, disaggregated,
-adaptive): their iterations take ``chunk_fn`` (packed spans, the paged
-span-attention kernel) or ``decode_fn`` (pure decode, the paged
-decode-attention kernel).  Monolithic prefill and the contiguous layout
-are not ported yet (ROADMAP.md queue 1).
+states pass between them through host arrays, as in the reference.  Every
+scheduling policy runs: monolithic admission prefills whole prompts
+through ``prefill_fn`` (the flash-attention kernel) and writes their K/V
+into the paged cache; span policies (chunked, disaggregated, adaptive)
+take ``chunk_fn`` (packed spans, the paged span-attention kernel); pure
+decode iterations take ``decode_fn`` (the paged decode-attention kernel).
+A model built with ``ModelOptions(kv_quant=True)`` keeps an int8 cache
+and runs the int8 twins of the paged kernels.  The contiguous layout is
+not ported yet (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -73,6 +76,7 @@ class PPStage:
     n_stages: int
     groups: Tuple[int, int]              # [lo, hi) of the blocks stack
     params: Any
+    prefill_fn: Callable                 # (params, x_or_tokens[B,S], pos0, last_idx[B]) -> (x|logits, cache)
     decode_fn: Callable                  # (params, cache, x_or_tokens[B], positions[B], tables) -> x|logits
     chunk_fn: Callable                   # (params, cache, x_or_tokens[T], positions[T], seq_idx[T], last_idx[B], tables) -> x|logits
 
@@ -115,6 +119,24 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
     sub = dataclasses.replace(st, n=hi - lo)
     first, last = idx == 0, idx == p - 1
 
+    def prefill_fn(params, x_or_tokens, pos0, last_idx):
+        """Whole-prompt prefill of a right-padded batch [B, S].
+        ``last_idx`` [B]: each sequence's final real position; logits
+        come from the true last token, not the pad tail (and windowed
+        models would need the real lengths too).  Returns the stage output
+        and the batch's fresh cache, leaves [groups, B, S, ...]."""
+        s = x_or_tokens.shape[1]
+        dev = x_or_tokens.device
+        positions = pos0 + torch.arange(s, dtype=torch.int32, device=dev)
+        ctx = model.make_ctx("prefill", positions, seq_lens=last_idx + 1)
+        x = model.embed_tokens(params, x_or_tokens) if first else x_or_tokens
+        cache = model.prefill_cache(sub.n, x.shape[0], s, dev, x.dtype)
+        x = run_stack(sub, params["blocks"], x, ctx, cache)
+        if last:
+            rows = torch.arange(x.shape[0], device=dev)
+            return model.lm_head(params, x[rows, last_idx.long()]), cache
+        return x, cache
+
     def decode_fn(params, cache, x_or_tokens, positions, tables):
         """Pure-decode step.  ``cache`` leaves are block-major
         [groups, n_blocks, bs, ...]; attention reads and writes through
@@ -139,7 +161,31 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
         x = run_stack(sub, params["blocks"], x, ctx, cache)
         return model.lm_head(params, x[last_idx.long()]) if last else x
 
-    return PPStage(idx, p, bounds, sp, decode_fn, chunk_fn)
+    return PPStage(idx, p, bounds, sp, prefill_fn, decode_fn, chunk_fn)
+
+
+def write_prefill(cache, fresh, tables: torch.Tensor, pad_block: int) -> None:
+    """Write a prefill pass's K/V into the paged cache, in place.
+    ``fresh`` leaves are [groups, B, S, ...] (``prefill_fn``'s cache);
+    ``cache`` leaves [groups, n_blocks + 1, bs, ...]; ``tables`` [B, nb]
+    int32.  The prompt is cut into blocks of bs slots scattered through
+    the table; slots past a row's table (the ragged pad tail) land in the
+    trash block ``pad_block``, as do blocks the table masks."""
+    b, sp = next(iter(fresh["l0"].values())).shape[1:3]
+    bs = next(iter(cache["l0"].values())).shape[2]
+    spb = -(-sp // bs)
+    st = torch.full((b, spb), pad_block, dtype=torch.long,
+                    device=tables.device)
+    k = min(spb, tables.shape[1])
+    st[:, :k] = tables[:, :k]
+    for kk, c_new in fresh["l0"].items():
+        pad = spb * bs - sp
+        if pad:
+            c_new = torch.cat([c_new, c_new.new_zeros(
+                (*c_new.shape[:2], pad, *c_new.shape[3:]))], 2)
+        # [n, B, spb * bs, ...] -> [n, B, spb, bs, ...] blocks
+        cache["l0"][kk][:, st] = c_new.reshape(
+            *c_new.shape[:2], spb, bs, *c_new.shape[3:])
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +372,24 @@ class _StageWorker:
             eng.send_hidden(stage.index, desc.iteration, out)
         return True
 
+    def run_prefill(self, x_or_tokens: torch.Tensor, pos0: int,
+                    last_idx: np.ndarray, tables: np.ndarray) -> np.ndarray:
+        """Pipeline prefill pass for newly admitted sequences: runs the
+        stage on the right-padded batch and writes the prompts' K/V into
+        the paged cache in place, block by block through ``tables``
+        ([B, nb], from ``padded_tables(mask_shared=True)``).  Slots past a
+        row's table (the ragged pad tail) and blocks shared through a
+        prefix hit land in the trash block."""
+        stage, eng = self.stage, self.engine
+        t0 = time.monotonic()
+        out, cache = stage.prefill_fn(stage.params, x_or_tokens, pos0,
+                                      self._dev(last_idx))
+        write_prefill(self.cache, cache, self._dev(tables),
+                      eng.kv_manager.pad_block)
+        out = out.float().cpu().numpy()          # waits for the device
+        self.metrics.busy.append((t0, time.monotonic()))
+        return out
+
     def stop(self):
         if isinstance(self.executor, TokenSafeExecutor):
             self.executor.stop()
@@ -388,11 +452,6 @@ class PPEngineBase:
                                    kv_manager=self.kv_manager,
                                    decode_enlarge_factor=cfg.decode_enlarge_factor,
                                    seq_id_fn=self._alloc.next)
-        if not self.scheduler.chunked:
-            raise NotImplementedError(
-                "monolithic prefill (policy 'monolithic', or 'auto' with no "
-                "prefill_chunk_tokens) is the next slice of the port "
-                "(ROADMAP.md queue 2: flash_attention); set a chunk budget")
         self.seq_cache = SequenceCache(cfg.max_batch * cfg.pp_degree,
                                        kv=self.kv_manager)
         self.stages = [_StageWorker(s, self)
@@ -661,6 +720,57 @@ class PPEngineBase:
             self._pending_release.discard(sid)
 
 
+    def _admit_and_prefill(self, sched: SchedulingOutput):
+        """Prefill newly admitted sequences through all stages."""
+        if sched.block_copies is not None:
+            # CoW copies ride the admitting sched; the monolithic path
+            # drained every in-flight iteration before this call, so the
+            # inline application cannot race the device threads
+            for w in self.stages:
+                w.apply_copies(sched.block_copies)
+        # fork children skip the prefill pass entirely: their prompt KV
+        # already lives in the shared blocks (the lazy seq-cache admission
+        # in step() registers their worker-side handles)
+        new = [sid for sid in sched.seq_ids
+               if self.seq_cache.lookup(sid) is None
+               and not self.scheduler.seqs[sid].forked]
+        if not new:
+            return
+        seqs = [self.scheduler.seqs[s] for s in new]
+        for s in seqs:
+            self.seq_cache.admit(s.seq_id, len(s.prompt_ids))
+        # mask_shared: the monolithic prefill recomputes the WHOLE prompt
+        # (prefill_fn cannot resume mid-prompt from cache), so a
+        # prefix-cache hit's shared blocks — and any fork-shared block —
+        # are write-masked to the trash block; the recomputed values are
+        # identical to the cached ones, only the write is suppressed
+        tables = self.kv_manager.padded_tables(new, mask_shared=True)
+        max_len = max(s.length for s in seqs)
+        toks = np.zeros((len(seqs), max_len), np.int32)
+        for i, s in enumerate(seqs):
+            ids = s.prompt_ids + s.output_ids
+            toks[i, :len(ids)] = ids  # right-pad (positions mask the tail)
+        last_idx = np.array([s.length - 1 for s in seqs], np.int32)
+        x = torch.tensor(toks, device=self.device)
+        for w in self.stages:
+            x_np = w.run_prefill(x, 0, last_idx, tables)
+            if not w.stage.is_last:
+                # inter-stage hidden, in the stages' dtype
+                x = torch.tensor(x_np, dtype=self.dtype, device=self.device)
+        # last stage output = logits at each sequence's final position;
+        # sample through the pool partition so each sequence's penalty
+        # state starts in (and stays with) its own sampler instance
+        ids = self._pool_sample(sched.iteration, sched.slot, new, x_np,
+                                [s.params for s in seqs])
+        # same-thread with the admitting schedule call: epochs are current
+        finished = self.scheduler.complete(
+            sched.iteration, new, ids, [s.preemptions for s in seqs])
+        for sid in finished:
+            self.seq_cache.release(sid)
+        for sid in new:
+            if sid not in finished:
+                self.seq_cache.advance(sid)
+
     def step(self) -> List[RequestOutput]:
         """One scheduler iteration: gate, schedule, submit, retire.
 
@@ -668,8 +778,10 @@ class PPEngineBase:
         ``add_request``/``abort`` with ``step()`` and receive the
         incremental :class:`RequestOutput` stream of every request that
         progressed (new tokens, finishes, aborts).  The iteration logic
-        is policy-agnostic thanks to the span interface: span policies
-        admit KV rows lazily on a sequence's first chunk.  Disaggregated phase boundaries need
+        is policy-agnostic thanks to the span interface: monolithic
+        admission (``is_prefill``) drains in-flight iterations and runs
+        the pipeline-blocking prefill; span policies admit KV rows lazily
+        on a sequence's first chunk.  Disaggregated phase boundaries need
         no special casing: prefill phases emit chunk-only spans at the
         full token budget, decode phases emit pure 1-token spans
         (``max_span == 1``) that take the flat ``decode_fn`` path and
@@ -704,6 +816,17 @@ class PPEngineBase:
             inflight.remove(d)
         sched = self.scheduler.schedule(it)
         self._reap_preempted()
+        while sched is not None and sched.is_prefill:
+            # monolithic path (chunking off): drain in-flight iterations
+            # first — run_prefill writes stage caches on this thread and
+            # must not race the device threads' cache writes.  Loop: the
+            # rebuild may admit again (capacity freed by finishes during
+            # the prefill).
+            while inflight:
+                self._await_iteration(inflight.pop(0))
+            self._admit_and_prefill(sched)
+            sched = self.scheduler.schedule(it)  # rebuilt after prefill
+            self._reap_preempted()
         if sched is not None:
             # span policies admit KV rows lazily, on first chunk.  An
             # admission may need the row of a just-aborted sequence

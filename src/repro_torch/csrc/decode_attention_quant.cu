@@ -1,0 +1,96 @@
+// Paged single-token attention over the int8 KV cache, for the pure
+// decode step (decode_fn) of a kv_quant model.
+//
+// No TPU kernel precedes it: the reference gathers the [B, nb * bs] view
+// of the int8 cache and runs the jnp decode_attention_quant on it
+// (repro/models/transformer.py:110-133, attention.py:553).  This kernel
+// computes that function through the [B, nb] block table, over slots
+// 0..positions[b] only.  Grid: one block per (row, kv head).
+//
+// decode_attention_quant normalises the softmax over the whole context
+// BEFORE it quantizes p * vs, with one scale per (row, query head), so a
+// streaming online softmax would compute another function.  The kernel
+// makes passes over the row's slots instead: exact int8 scores into a
+// scratch row in device memory (the wrapper's [B, H, nb * bs] fp32
+// buffer), their max, the sum of expf(s - max), then p = e / sum times
+// vs and its largest magnitude, the quantization of p * vs, and the
+// exact int8 AV dot; out = o32 * ps.  Shared pieces, numerics and bound:
+// paged_attention_quant.cuh.
+#include "paged_attention_quant.cuh"
+
+__global__ void __launch_bounds__(pquant::kThreads)
+paged_decode_attention_quant_kernel(
+    const __nv_bfloat16* __restrict__ q, const signed char* __restrict__ k8,
+    const __nv_bfloat16* __restrict__ ks, const signed char* __restrict__ v8,
+    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tables,
+    const int* __restrict__ positions, float* __restrict__ scratch,
+    __nv_bfloat16* __restrict__ out, int H, int Kv, int hd, int bs, int nb,
+    int n_blocks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int g = H / Kv;
+  const int pos = positions[b];
+  assert(pos >= 0);  // a corrupt batch fails loudly
+  const int* table = tables + (size_t)b * nb;
+  const int stride = nb * bs;
+  float* buf = scratch + ((size_t)b * H + kh * g) * stride;  // [g][stride]
+  float* unused;
+  const pquant::Smem s = pquant::carve(smem, g, hd, 0, &unused);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_slots = min(pos + 1, stride);
+  pquant::check_table(table, n_slots, bs, n_blocks);
+  pquant::load_query(q + ((size_t)b * H + kh * g) * hd, g, hd, s);
+  __syncthreads();
+  pquant::score(k8, ks, table, 0, n_slots, bs, Kv, kh, g, hd, scale, s, buf,
+                stride);
+  __syncthreads();
+  for (int j = warp; j < g; j += pquant::kWarps) {
+    float* r = buf + (size_t)j * stride;
+    float mx = pquant::kNegInf;
+    for (int i = lane; i < n_slots; i += 32) mx = fmaxf(mx, r[i]);
+    mx = pquant::warp_max(mx);
+    float sum = 0.f;
+    for (int i = lane; i < n_slots; i += 32) sum += expf(r[i] - mx);
+    sum = pquant::warp_sum(sum);
+    float amax = 0.f;
+    for (int i = lane; i < n_slots; i += 32) {
+      const float p = __fdiv_rn(expf(r[i] - mx), sum);
+      const float pv = p * __bfloat162float(
+          vs[pquant::slot_index(table, i, bs, Kv, kh)]);
+      r[i] = pv;
+      amax = fmaxf(amax, fabsf(pv));
+    }
+    amax = pquant::warp_max(amax);
+    __syncwarp();
+    pquant::quantize_row(r, n_slots, amax, s.ps + j);
+  }
+  __syncthreads();
+  pquant::av(v8, table, 0, n_slots, bs, Kv, kh, g, hd, buf, stride, s, false);
+  __syncthreads();
+  __nv_bfloat16* o = out + ((size_t)b * H + kh * g) * hd;
+  for (int i = threadIdx.x; i < g * hd; i += pquant::kThreads)
+    o[i] = __float2bfloat16(s.acc[i]);
+}
+
+// q [B, H, hd] bf16; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs
+// [n_blocks, bs, Kv] bf16; tables [B, nb], positions [B] int32; scratch
+// [B, H, nb * bs] fp32; out [B, H*hd] bf16.  hd must be a multiple of 16.
+extern "C" int paged_decode_attention_quant(
+    const void* q, const void* k8, const void* ks, const void* v8,
+    const void* vs, const void* tables, const void* positions, void* scratch,
+    void* out, int B, int H, int Kv, int hd, int bs, int nb, int n_blocks,
+    float scale, void* stream) {
+  if (B == 0) return 0;
+  if (hd % 16) return (int)cudaErrorInvalidValue;
+  const size_t smem = pquant::smem_bytes(H / Kv, hd, 0);
+  cudaError_t err = pquant::prepare_smem(paged_decode_attention_quant_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_attention_quant_kernel<<<dim3(B, Kv), pquant::kThreads, smem,
+                                        (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const signed char*)k8,
+      (const __nv_bfloat16*)ks, (const signed char*)v8,
+      (const __nv_bfloat16*)vs, (const int*)tables, (const int*)positions,
+      (float*)scratch, (__nv_bfloat16*)out, H, Kv, hd, bs, nb, n_blocks,
+      scale);
+  return (int)cudaGetLastError();
+}

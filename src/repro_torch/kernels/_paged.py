@@ -1,6 +1,7 @@
 """Input checks and launch geometry shared by the paged attention kernels
 (``span_attention``, ``decode_attention``); see
-``csrc/paged_attention.cuh`` for the kernels' common body."""
+``csrc/paged_attention.cuh`` and ``csrc/paged_attention_quant.cuh`` for
+the kernels' common bodies."""
 from __future__ import annotations
 
 import threading
@@ -10,23 +11,17 @@ import torch
 TILE = 64                   # KV slots staged in shared memory per step
 
 
-def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-          block_tables: torch.Tensor, index_vectors) -> None:
-    """Validate a paged attention call: q [N, H, hd]; caches
-    [n_blocks, bs, Kv, hd]; tables [B, nb] int32; each index vector [N]
-    int32; everything on one device.  Raises ValueError/TypeError."""
-    if q.dim() != 3 or k_cache.dim() != 4:
+def _check_shapes(q: torch.Tensor, cache_shape, block_tables: torch.Tensor,
+                  index_vectors) -> None:
+    if q.dim() != 3 or len(cache_shape) != 4:
         raise ValueError(f"q must be [N, H, hd] and the caches "
                          f"[n_blocks, bs, Kv, hd]; got {tuple(q.shape)} "
-                         f"and {tuple(k_cache.shape)}")
-    if v_cache.shape != k_cache.shape:
-        raise ValueError(f"k/v cache shapes differ: {tuple(k_cache.shape)} "
-                         f"vs {tuple(v_cache.shape)}")
+                         f"and {tuple(cache_shape)}")
     n, h, hd = q.shape
-    kv = k_cache.shape[2]
-    if k_cache.shape[3] != hd or h % kv:
+    kv = cache_shape[2]
+    if cache_shape[3] != hd or h % kv:
         raise ValueError(f"q heads/width {h}x{hd} do not fit cache kv "
-                         f"heads/width {kv}x{k_cache.shape[3]}")
+                         f"heads/width {kv}x{cache_shape[3]}")
     if block_tables.dim() != 2:
         raise ValueError(f"block_tables must be [B, nb], got "
                          f"{tuple(block_tables.shape)}")
@@ -36,10 +31,9 @@ def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     for name, v in (("block_tables", block_tables), *index_vectors.items()):
         if v.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {v.dtype}")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype):
-        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_cache.dtype}, "
-                        f"{v_cache.dtype}")
-    tensors = [q, k_cache, v_cache, block_tables, *index_vectors.values()]
+
+
+def _check_devices(q: torch.Tensor, tensors) -> None:
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all inputs must be on one device, got "
                          f"{sorted(str(t.device) for t in tensors)}")
@@ -55,6 +49,53 @@ def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise TypeError(f"the CUDA kernel takes bf16, got {q.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel needs contiguous inputs")
+
+
+def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+          block_tables: torch.Tensor, index_vectors) -> None:
+    """Validate a paged attention call: q [N, H, hd]; caches
+    [n_blocks, bs, Kv, hd]; tables [B, nb] int32; each index vector [N]
+    int32; everything on one device.  Raises ValueError/TypeError."""
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"k/v cache shapes differ: {tuple(k_cache.shape)} "
+                         f"vs {tuple(v_cache.shape)}")
+    _check_shapes(q, k_cache.shape, block_tables, index_vectors)
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    _check_devices(q, [q, k_cache, v_cache, block_tables,
+                       *index_vectors.values()])
+
+
+def check_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                v8: torch.Tensor, vs: torch.Tensor,
+                block_tables: torch.Tensor, index_vectors) -> None:
+    """Validate a paged int8 attention call: q [N, H, hd] (bf16; fp32 too
+    on the CPU); k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks, bs,
+    Kv] bf16; tables and index vectors as in :func:`check`.  The CUDA
+    kernels read K 16 bytes at a time, so there hd must be a multiple of
+    16 and the int8 caches 16-byte aligned."""
+    if v8.shape != k8.shape:
+        raise ValueError(f"k/v cache shapes differ: {tuple(k8.shape)} "
+                         f"vs {tuple(v8.shape)}")
+    _check_shapes(q, k8.shape, block_tables, index_vectors)
+    for name, c, dt in (("k8", k8, torch.int8), ("v8", v8, torch.int8),
+                        ("ks", ks, torch.bfloat16), ("vs", vs, torch.bfloat16)):
+        if c.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {c.dtype}")
+    for name, c in (("ks", ks), ("vs", vs)):
+        if c.shape != k8.shape[:3]:
+            raise ValueError(f"{name} must be {tuple(k8.shape[:3])}, got "
+                             f"{tuple(c.shape)}")
+    tensors = [q, k8, ks, v8, vs, block_tables, *index_vectors.values()]
+    _check_devices(q, tensors)
+    if q.device.type == "cuda":
+        if q.shape[2] % 16:
+            raise ValueError(f"the CUDA kernel needs hd % 16 == 0, got "
+                             f"{q.shape[2]}")
+        if k8.data_ptr() % 16 or v8.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned int8 "
+                             "caches")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

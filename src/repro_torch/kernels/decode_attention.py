@@ -1,16 +1,26 @@
-"""Paged single-token (decode) attention.
+"""Paged single-token (decode) attention, over a bf16 cache and over the
+int8 cache.
 
-CUDA kernel: ``csrc/decode_attention.cu``, which replaces the TPU kernel
-``repro/kernels/decode_attention.py:72`` (``decode_attention``).  The TPU
-kernel read contiguous rows; this one reads K/V through the [B, nb] block
-table.  It is memory-bound: the least it must move is each row's K/V
-prefix once, plus q and the output.  Its design is described in
-``csrc/paged_attention.cuh``.
+CUDA kernels:
 
-Plain version: :func:`paged_decode_attention_plain`, the reference's
+- ``csrc/decode_attention.cu`` replaces the TPU kernel
+  ``repro/kernels/decode_attention.py:72`` (``decode_attention``).  The
+  TPU kernel read contiguous rows; this one reads K/V through the [B, nb]
+  block table.  Its design is described in ``csrc/paged_attention.cuh``.
+- ``csrc/decode_attention_quant.cu`` has no TPU kernel before it: the
+  reference runs the jnp ``decode_attention_quant`` on the gathered view
+  (repro/models/transformer.py:110-133).  It reads the int8 cache through
+  the table (``csrc/paged_attention_quant.cuh``).
+
+Both are memory-bound: the least they must move is each row's K/V
+prefix once, plus q and the output.
+
+Plain versions: :func:`paged_decode_attention_plain`, the reference's
 paged decode (``attention.decode_attention`` over ``gather_paged_cache``,
 repro/models/transformer.py:140-143): scores in the input dtype, softmax
-in fp32, probabilities cast back.
+in fp32, probabilities cast back; and
+:func:`paged_decode_attention_quant_plain`, ``decode_attention_quant``
+over the gathered int8 view, as the reference computes it.
 """
 from __future__ import annotations
 
@@ -20,7 +30,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, _paged
-from repro_torch.models.attention import decode_attention, gather_paged_cache
+from repro_torch.models.attention import (decode_attention,
+                                          decode_attention_quant,
+                                          gather_paged_cache)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -29,6 +41,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel():
     return _build.load("decode_attention", "paged_decode_attention",
                        [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _quant_kernel():
+    return _build.load("decode_attention_quant",
+                       "paged_decode_attention_quant",
+                       [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P])
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_tables,
@@ -75,3 +94,49 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_quant_plain(q, k8, ks, v8, vs, block_tables,
+                                       positions):
+    """q [B, H, hd]; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks,
+    bs, Kv] bf16; block_tables [B, nb]; positions [B] -> [B, H*hd]."""
+    g = lambda c: gather_paged_cache(c, block_tables)
+    return decode_attention_quant(q, g(k8), g(ks), g(v8), g(vs), positions)
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                                 ks: torch.Tensor, v8: torch.Tensor,
+                                 vs: torch.Tensor, block_tables: torch.Tensor,
+                                 positions: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_decode_attention` over the int8 cache (k8/v8 int8
+    [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks, bs, Kv]).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16 q, hd a multiple of 16)."""
+    _paged.check_quant(q, k8, ks, v8, vs, block_tables,
+                       {"positions": positions})
+    if block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"block_tables has {block_tables.shape[0]} rows "
+                         f"for {q.shape[0]} queries")
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_plain(q, k8, ks, v8, vs,
+                                                  block_tables, positions)
+    b, h, hd = q.shape
+    n_blocks, bs, kv = k8.shape[:3]
+    nb = block_tables.shape[1]
+    out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
+    # the scores, then the quantized probabilities, of each (row, head)
+    scratch = torch.empty((b, h, nb * bs), dtype=torch.float32,
+                          device=q.device)
+    rc = _quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                         v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
+                         positions.data_ptr(), scratch.data_ptr(),
+                         out.data_ptr(), b, h, kv, hd, bs, nb, n_blocks,
+                         hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"paged_decode_attention_quant launch failed: "
+                           f"CUDA error {rc}")
+    _paged.count_launch(paged_decode_attention_quant)
+    return out
+
+
+paged_decode_attention_quant.launches = 0

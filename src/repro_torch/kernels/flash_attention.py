@@ -1,0 +1,98 @@
+"""Causal prefill attention (the monolithic prefill step's attention).
+
+CUDA kernel: ``csrc/flash_attention.cu``, which replaces the TPU kernel
+``repro/kernels/flash_attention.py:80`` (``flash_attention``) together
+with its layout adapter ``repro/kernels/ops.py:27``
+(``flash_attention_bshd``): it takes the model's [B, S, H, hd] layout and
+returns [B, S, H*hd].  Memory bounds it at the engine's prompt lengths
+(up to S ~ 1200 with H = Kv; the bf16 tensor cores beyond); this first
+version runs fp32 FMAs in 64 x 64 tiles with an fp32 online softmax,
+skipping whole tiles outside the causal (and window) band.
+
+Plain version: :func:`flash_attention_plain`, the reference's prefill
+attention ``repro.models.attention.chunked_attention`` (what its
+``prefill`` mode runs off the TPU) with its dtype casts.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, _paged
+from repro_torch.models.attention import chunked_attention
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+HEAD_DIMS = (16, 32, 64, 128)        # the kernel's compiled head widths
+
+
+@functools.cache
+def _kernel():
+    return _build.load("flash_attention", "flash_attention",
+                       [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P])
+
+
+def flash_attention_plain(q, k, v, q_positions, *, window: int = 0,
+                          kv_block: int = 512):
+    """q [B, Sq, H, hd]; k, v [B, Skv, Kv, hd]; q_positions [Sq] ->
+    [B, Sq, H*hd]."""
+    return chunked_attention(q, k, v, window=window, kv_block=kv_block,
+                             q_positions=q_positions)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, *, window: int = 0,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Query row i (at position ``q_positions[i]``) of batch row b attends
+    to keys ``j <= q_positions[i]`` with ``j > q_positions[i] - window``
+    (window > 0) of the same batch row; GQA maps query head h to
+    kv head ``h // (H // Kv)``.  q [B, Sq, H, hd]; k, v [B, Skv, Kv, hd];
+    q_positions [Sq] int32 -> [B, Sq, H*hd].  CPU tensors take the plain
+    version, whose kv tile is ``kv_block`` (the kernel's tiles are 64 keys
+    wide; the tile changes only the order of fp32 sums); CUDA tensors
+    launch the kernel (bf16, hd in ``HEAD_DIMS``)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B, S, H, hd] and k, v one [B, S, Kv, "
+                         f"hd] shape; got {tuple(q.shape)}, {tuple(k.shape)}"
+                         f", {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
+                         f"{tuple(k.shape)}")
+    if q_positions.shape != (sq,) or q_positions.dtype != torch.int32:
+        raise ValueError(f"q_positions must be [{sq}] int32, got "
+                         f"{tuple(q_positions.shape)} {q_positions.dtype}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    tensors = [q, k, v, q_positions]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all inputs must be on one device, got "
+                         f"{sorted(str(t.device) for t in tensors)}")
+    if q.device.type == "cpu":
+        if q.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the plain version takes bf16 or fp32, got "
+                            f"{q.dtype}")
+        return flash_attention_plain(q, k, v, q_positions, window=window,
+                                     kv_block=kv_block)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bf16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernel needs contiguous inputs")
+    out = torch.empty((b, sq, h * hd), dtype=q.dtype, device=q.device)
+    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   q_positions.data_ptr(), out.data_ptr(), b, sq, skv, h, kv,
+                   hd, window, hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    _paged.count_launch(flash_attention)
+    return out
+
+
+flash_attention.launches = 0

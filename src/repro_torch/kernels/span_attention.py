@@ -1,15 +1,25 @@
-"""Paged packed span attention (the chunked-prefill step's attention).
+"""Paged packed span attention (the chunked-prefill step's attention),
+over a bf16 cache and over the int8 cache.
 
-CUDA kernel: ``csrc/paged_span_attention.cu``, which replaces the TPU
-kernel ``repro/kernels/span_attention.py:611`` (``paged_span_attention``).
-It is memory-bound: the least it must move is each row's K/V prefix once,
-plus q and the output.  Its design (one block per token and kv head,
-shared-memory tiles, fp32 online softmax) is described in
-``csrc/paged_attention.cuh``.
+CUDA kernels:
 
-Plain version: :func:`paged_span_attention_plain`, the reference oracle's
-gather-then-attend (``repro.models.attention.paged_span_attention``) with
-its dtype casts.
+- ``csrc/paged_span_attention.cu`` replaces the TPU kernel
+  ``repro/kernels/span_attention.py:611`` (``paged_span_attention``).
+  Its design (one block per token and kv head, shared-memory tiles, fp32
+  online softmax) is described in ``csrc/paged_attention.cuh``.
+- ``csrc/paged_span_attention_quant.cu`` replaces
+  ``repro/kernels/span_attention.py:656`` (``paged_span_attention_quant``)
+  for ``kv_quant`` models: exact int8 dots, q and the probabilities
+  quantized on the fly (``csrc/paged_attention_quant.cuh``).
+
+Both are memory-bound: the least they must move is each row's K/V
+prefix once, plus q and the output.
+
+Plain versions: :func:`paged_span_attention_plain`, the reference
+oracle's gather-then-attend (``repro.models.attention.
+paged_span_attention``) with its dtype casts, and
+:func:`paged_span_attention_quant_plain`, the reference engine's int8
+path off the TPU (``attention.paged_span_attention_quant_native``).
 """
 from __future__ import annotations
 
@@ -19,8 +29,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, _paged
-from repro_torch.models.attention import (gather_paged_cache,
-                                          packed_span_attention)
+from repro_torch.models.attention import (
+    kv_tile, gather_paged_cache, packed_span_attention,
+    paged_span_attention_quant_native)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -29,6 +40,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _kernel():
     return _build.load("paged_span_attention", "paged_span_attention",
                        [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _quant_kernel():
+    return _build.load("paged_span_attention_quant",
+                       "paged_span_attention_quant",
+                       [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
 
 
 def paged_span_attention_plain(q, k_cache, v_cache, block_tables, positions,
@@ -76,3 +94,52 @@ def paged_span_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 paged_span_attention.launches = 0
+
+
+def paged_span_attention_quant_plain(q, k8, ks, v8, vs, block_tables,
+                                     positions, seq_idx, *,
+                                     kv_block: int = 512):
+    """q [T, H, hd]; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks,
+    bs, Kv] bf16; block_tables [B, nb]; positions/seq_idx [T] ->
+    [T, H*hd]."""
+    return paged_span_attention_quant_native(
+        q, k8, ks, v8, vs, block_tables, positions, seq_idx,
+        kv_block=kv_block)
+
+
+def paged_span_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                               ks: torch.Tensor, v8: torch.Tensor,
+                               vs: torch.Tensor, block_tables: torch.Tensor,
+                               positions: torch.Tensor, seq_idx: torch.Tensor,
+                               *, kv_block: int = 512) -> torch.Tensor:
+    """:func:`paged_span_attention` over the int8 cache (k8/v8 int8
+    [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks, bs, Kv]).
+    The probabilities are quantized per tile of ``kv_block`` slots,
+    clipped and halved until it divides the table's ``nb * bs`` slots (the
+    reference engine's rule; ``kv_block = bs`` gives the Pallas kernel's
+    one-page tiles).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16 q, hd a multiple of 16)."""
+    _paged.check_quant(q, k8, ks, v8, vs, block_tables,
+                       {"positions": positions, "seq_idx": seq_idx})
+    if q.device.type == "cpu":
+        return paged_span_attention_quant_plain(
+            q, k8, ks, v8, vs, block_tables, positions, seq_idx,
+            kv_block=kv_block)
+    t, h, hd = q.shape
+    n_blocks, bs, kv = k8.shape[:3]
+    b, nb = block_tables.shape
+    tile = kv_tile(kv_block, nb * bs)
+    out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
+    rc = _quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                         v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
+                         positions.data_ptr(), seq_idx.data_ptr(),
+                         out.data_ptr(), t, h, kv, hd, bs, b, nb, n_blocks,
+                         tile, hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"paged_span_attention_quant launch failed: CUDA "
+                           f"error {rc}")
+    _paged.count_launch(paged_span_attention_quant)
+    return out
+
+
+paged_span_attention_quant.launches = 0

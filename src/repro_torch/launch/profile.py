@@ -3,15 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch stablelm-1.6b]
 
 Splits a full-width model into two pipeline stages on one card (random
-weights from ``--seed``) and times the pieces an iteration of the
-chunked policy is made of, at the shapes of ``chip_smoke.py``'s engine
-phase:
+weights from ``--seed``) and times the pieces an iteration is made of,
+at the shapes of ``chip_smoke.py``'s engine phase:
 
-* the first stage's decode step (B = 4 rows, contexts of 300-600 tokens)
-  and chunk step (T = 256 packed tokens over 4 rows): host time per step
-  (wall clock around synchronised steps), device time (CUDA events), the
-  device's busy share of the step and its kernels by device time
-  (``torch.profiler``);
+* the first stage's decode step (B = 4 rows, contexts of 300-600 tokens),
+  chunk step (T = 256 packed tokens over 4 rows) and monolithic prefill
+  step (4 right-padded prompts, S = 397), and its decode and chunk steps
+  over the int8 KV cache: host time per step (wall clock around
+  synchronised steps), device time (CUDA events), the device's busy
+  share of the step and its kernels by device time (``torch.profiler``);
 * the last stage's decode step including the logits' copy to the host;
 * the CPU sampler on those logits, with the serving defaults' params
   (temperature, top-k, top-p, penalties) and greedy.
@@ -34,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.engine import split_for_pp
 from repro_torch.core.sampler import ColumnWiseSampler
 from repro_torch.core.sampling_params import SamplingParams
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import ModelOptions, build_model
 
 BS = 16
 
@@ -117,6 +117,23 @@ def main():
     _piece("first stage chunk step (T=256)",
            lambda: first.chunk_fn(first.params, caches[0], span, span_pos,
                                   span_seq, last_idx, tables),
+           args.reps, results)
+    prompts = i32(np.random.default_rng(args.seed).integers(
+        2, cfg.vocab_size, (4, 397)))
+    lens = i32([397, 260, 141, 78])
+    _piece("first stage prefill step (B=4, S=397)",
+           lambda: first.prefill_fn(first.params, prompts, 0, lens - 1),
+           args.reps, results)
+    # the same stage over the int8 cache (the weights are the same)
+    model_q = build_model(cfg, ModelOptions(kv_quant=True))
+    first_q = split_for_pp(model_q, params, 2)[0]
+    cache_q = model_q.paged_cache(first_q.n_groups, n_blocks, BS, device=dev)
+    _piece("first stage decode step, int8 cache (B=4)",
+           lambda: first_q.decode_fn(first_q.params, cache_q, tok, pos,
+                                     tables), args.reps, results)
+    _piece("first stage chunk step, int8 cache (T=256)",
+           lambda: first_q.chunk_fn(first_q.params, cache_q, span, span_pos,
+                                    span_seq, last_idx, tables),
            args.reps, results)
     hidden = torch.randn(4, cfg.d_model, device=dev).to(torch.bfloat16)
     logits = []

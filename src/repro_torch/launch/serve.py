@@ -2,14 +2,13 @@
 with a ShareGPT-shaped workload (offline batch: enqueue everything, then
 a blocking ``run()``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
-      --chunk-tokens 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
 
 ``--arch stablelm-1.6b`` serves the full-size configuration (random
 weights from ``--seed``); ``stablelm-1.6b-smoke`` the reduced one.  The
-engine runs on the card unless ``--device cpu`` is given.  Monolithic
-prefill (``--policy monolithic``, or ``auto`` without ``--chunk-tokens``)
-is the next slice of the port and raises.
+engine runs on the card unless ``--device cpu`` is given.  Without
+``--chunk-tokens`` the default policy prefills whole prompts
+(monolithic); ``--chunk-tokens 256`` selects chunked prefill.
 """
 from __future__ import annotations
 
@@ -80,7 +79,7 @@ def main():
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--chunk-tokens", type=int, default=0,
                     help="per-iteration token budget for span scheduling "
-                         "policies (0 = monolithic prefill, not ported yet)")
+                         "policies (0 = monolithic prefill)")
     ap.add_argument("--policy", default="auto", choices=POLICY_CHOICES,
                     help="scheduling policy; 'auto' maps a token budget to "
                          "chunked")

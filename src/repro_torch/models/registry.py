@@ -6,6 +6,9 @@ dicts of tensors in the reference's layout (``embed``, ``lnf``, ``head``,
 :mod:`repro_torch.bridge` maps the reference's pytree onto them leaf for
 leaf.  The engine drives the model through the ``make_ctx``,
 ``embed_tokens`` and ``lm_head`` hooks and :func:`run_stack`.
+:class:`ModelOptions` selects the int8 KV cache (``kv_quant``) and the
+prefill attention's kv tile; the reference's other options are not
+ported and raise when set.
 """
 from __future__ import annotations
 
@@ -25,11 +28,31 @@ from repro_torch.models.transformer import dense_layer_stack
 PyTree = Any
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelOptions:
+    """The reference's ``repro.models.ModelOptions``.  Ported: ``kv_block``
+    (prefill attention's kv tile) and ``kv_quant`` (int8 KV cache, one bf16
+    scale per K/V vector).  The others keep their defaults or raise."""
+    kv_block: int = 512
+    triangular: bool = False
+    fuse_shared_expert: bool = False
+    seq_shard: bool = False
+    kv_quant: bool = False
+    remat: bool = True
+    logits_fp32: bool = True
+
+
+_UNPORTED_OPTIONS = ("triangular", "fuse_shared_expert", "seq_shard",
+                     "remat", "logits_fp32")
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
+    options: ModelOptions
     specs: PyTree                      # ParamSpec tree (stacked)
     stacks: Dict[str, Stack]
+    prefill: Callable                  # (params, batch) -> (logits [B,V], cache)
     decode: Callable                   # (params, cache, batch) -> (logits [B,V], cache)
     make_ctx: Callable
     embed_tokens: Callable
@@ -47,30 +70,52 @@ class Model:
                                               fan_in=s.fan_in, device=device),
                         self.specs)
 
+    def _kv_leaves(self, lead, dtype, quant: Optional[bool]):
+        """Cache leaf shapes and dtypes over the leading dims ``lead``."""
+        quant = self.options.kv_quant if quant is None else quant
+        cfg = self.cfg
+        vec = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+        if quant:
+            return {"k": (vec, torch.int8), "v": (vec, torch.int8),
+                    "ks": (vec[:-1], torch.bfloat16),
+                    "vs": (vec[:-1], torch.bfloat16)}
+        return {"k": (vec, dtype), "v": (vec, dtype)}
+
     def paged_cache(self, n_groups: int, n_blocks: int, block_size: int,
-                    device=None, dtype=torch.bfloat16) -> PyTree:
+                    device=None, dtype=torch.bfloat16,
+                    quant: Optional[bool] = None) -> PyTree:
         """Zeroed block-major KV cache of ``n_groups`` layer groups:
         ``{"l0": {"k", "v"}}`` leaves [groups, n_blocks, bs, Kv, hd], on
         ``device`` (``cuda`` unless given).  It takes the parameters'
         dtype: bf16 as in the reference, or fp32 for parity runs on the
-        CPU."""
+        CPU.  With ``quant`` (default: the model's ``kv_quant``) the
+        leaves are int8 and ``{"ks", "vs"}`` bf16 [groups, n_blocks, bs,
+        Kv] hold their scales."""
         device = resolve_device(device)
-        cfg = self.cfg
-        shape = (n_groups, n_blocks, block_size, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"l0": {kk: torch.zeros(shape, dtype=dtype, device=device)
-                       for kk in ("k", "v")}}
+        leaves = self._kv_leaves((n_groups, n_blocks, block_size), dtype,
+                                 quant)
+        return {"l0": {kk: torch.zeros(shape, dtype=dt, device=device)
+                       for kk, (shape, dt) in leaves.items()}}
 
-    def prefill(self, params, batch):
-        raise NotImplementedError(
-            "monolithic prefill is the next slice of the port "
-            "(ROADMAP.md queue 2: flash_attention); use a span policy")
+    def prefill_cache(self, n_groups: int, batch: int, seq: int, device,
+                      dtype=torch.bfloat16) -> PyTree:
+        """Uninitialized per-prompt cache that prefill mode fills:
+        ``{"l0": {...}}`` leaves [groups, B, S, Kv, hd] (scales [groups,
+        B, S, Kv]), int8 with the model's ``kv_quant``."""
+        leaves = self._kv_leaves((n_groups, batch, seq), dtype, None)
+        return {"l0": {kk: torch.empty(shape, dtype=dt, device=device)
+                       for kk, (shape, dt) in leaves.items()}}
 
 
-def build_model(cfg: ArchConfig) -> Model:
+def build_model(cfg: ArchConfig,
+                options: ModelOptions = ModelOptions()) -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1)")
+    for name in _UNPORTED_OPTIONS:
+        if getattr(options, name) != getattr(ModelOptions, name):
+            raise NotImplementedError(
+                f"ModelOptions.{name} is not ported yet (ROADMAP.md queue 1)")
     stacks = {"blocks": dense_layer_stack(cfg, cfg.num_layers)}
     d, v = cfg.d_model, cfg.vocab_size
     specs = {
@@ -83,16 +128,34 @@ def build_model(cfg: ArchConfig) -> Model:
 
     def make_ctx(mode: str, positions: torch.Tensor,
                  seq_idx: Optional[torch.Tensor] = None,
+                 seq_lens: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None) -> Ctx:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         return Ctx(mode=mode, positions=positions, rope_cos=cos,
-                   rope_sin=sin, seq_idx=seq_idx, block_tables=block_tables)
+                   rope_sin=sin, seq_idx=seq_idx, seq_lens=seq_lens,
+                   block_tables=block_tables, kv_block=options.kv_block,
+                   kv_quant=options.kv_quant)
 
     def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
 
     def lm_head(params, x: torch.Tensor) -> torch.Tensor:
         return (rmsnorm(x, params["lnf"], cfg.norm_eps) @ params["head"]).float()
+
+    def prefill(params, batch):
+        """batch: ``tokens`` [B, S].  Returns the logits of each row's
+        last token [B, V] and ``{"blocks": cache}``, the prompt's K/V
+        (int8 with scales under ``kv_quant``) as leaves [layers, B, S,
+        ...]."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed_tokens(params, tokens)
+        ctx = make_ctx("prefill", torch.arange(s, dtype=torch.int32,
+                                               device=x.device))
+        cache = model.prefill_cache(cfg.num_layers, b, s, x.device, x.dtype)
+        x = run_stack(stacks["blocks"], params["stacks"]["blocks"], x, ctx,
+                      cache)
+        return lm_head(params, x[:, -1]), {"blocks": cache}
 
     def decode(params, cache, batch):
         """batch: ``token`` [B], ``positions`` [B] int32 and
@@ -105,6 +168,7 @@ def build_model(cfg: ArchConfig) -> Model:
                       cache)
         return lm_head(params, x), cache
 
-    return Model(cfg=cfg, specs=specs, stacks=stacks, decode=decode,
-                 make_ctx=make_ctx, embed_tokens=embed_tokens,
-                 lm_head=lm_head)
+    model = Model(cfg=cfg, options=options, specs=specs, stacks=stacks,
+                  prefill=prefill, decode=decode, make_ctx=make_ctx,
+                  embed_tokens=embed_tokens, lm_head=lm_head)
+    return model

@@ -21,22 +21,31 @@ PyTree = Any
 class Ctx:
     """Per-call context threaded through block apply functions."""
 
-    mode: str                      # decode | chunk
-    positions: torch.Tensor        # decode: [B]; chunk: [T]
+    mode: str                      # prefill | decode | chunk
+    positions: torch.Tensor        # prefill: [S]; decode: [B]; chunk: [T]
     rope_cos: Optional[torch.Tensor] = None
     rope_sin: Optional[torch.Tensor] = None
     # chunk mode (packed ragged layout): batch row of each packed token [T]
     seq_idx: Optional[torch.Tensor] = None
+    # prefill mode: per-row real token counts [B] of a ragged
+    # (right-padded) batch; the reference's windowed models need them to
+    # keep pad-tail K/V out of a rolling cache (None = batch is unpadded)
+    seq_lens: Optional[torch.Tensor] = None
     # paged KV layout: per-row physical block ids [B, nb]; cache leaves are
     # block-major [n_blocks, block_size, ...] and attention reads and
     # writes through the table
     block_tables: Optional[torch.Tensor] = None
+    # prefill attention's kv tile (its plain version's; ModelOptions)
+    kv_block: int = 512
+    # int8 KV cache: {k, v} int8 with bf16 scales {ks, vs}
+    kv_quant: bool = False
 
 
 @dataclasses.dataclass
 class Stack:
     """``apply(group_params, x, ctx, cache_group) -> x``; the group's
-    cache is updated in place."""
+    cache is updated in place (in prefill mode it receives the group's
+    fresh K/V: ``Model.prefill_cache`` allocates it)."""
 
     n: int
     specs: PyTree

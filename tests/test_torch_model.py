@@ -1,6 +1,7 @@
 """The port's dense model against the reference on stablelm-1.6b-smoke:
 the same weights (``params_from_jax``), the same paged cache contents and
-the same inputs through both packages' pipeline-stage functions.
+the same inputs through both packages' pipeline-stage functions, in the
+prefill, chunk and decode modes, with a bf16/fp32 or an int8 KV cache.
 
 Tolerances on the logits (and the cache contents), by dtype:
   fp32  1e-4 — the algorithm: the same operations, summed in other orders.
@@ -10,7 +11,9 @@ Tolerances on the logits (and the cache contents), by dtype:
                each one; over four layers that moves logits of magnitude
                ~3 by up to 0.0625 on this input (mean 0.01).
 Greedy tokens must agree wherever the reference's top-2 logit gap exceeds
-twice the tolerance."""
+twice the tolerance.  int8 caches are compared dequantized, within the
+tolerance plus one quantization step (``_assert_cache_close``), and the
+logits of steps that attend one within ``LOGIT_TOL_INT8``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,16 +21,24 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
+from repro.core import engine as ref_engine
 from repro.core.engine import split_for_pp as ref_split_for_pp
+from repro.models import ModelOptions as RefModelOptions
+from repro.models import ShardCtx
 from repro.models import build_model as ref_build_model
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.core import engine
 from repro_torch.core.engine import split_for_pp
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import ModelOptions, build_model
 from repro_torch.models.stacked import tree_map
 
 ARCH = "stablelm-1.6b-smoke"
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+# chunk and decode over an int8 cache: in fp32 a K/V or probability value
+# within noise of a rounding boundary quantizes one int8 step apart in the
+# two packages, which moved the logits by up to 4.3e-4 on this input
+LOGIT_TOL_INT8 = {"float32": 1e-3, "bfloat16": 0.1}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 BS, N_BLOCKS = 16, 12         # + the trash block
@@ -40,6 +51,45 @@ def models():
     np_params = jax.tree.map(np.asarray, ref_params)
     model = build_model(get_config(ARCH))
     return ref_model, ref_params, model, params_from_jax(np_params, device="cpu")
+
+
+def _with_options(models, kv_quant):
+    """The fixture's models, rebuilt with the int8 KV cache if asked (the
+    weights are the same)."""
+    ref_model, ref_params, model, params = models
+    if kv_quant:
+        ref_model = ref_build_model(ref_get_config(ARCH), ShardCtx.single(),
+                                    RefModelOptions(kv_quant=True))
+        model = build_model(get_config(ARCH), ModelOptions(kv_quant=True))
+    return ref_model, ref_params, model, params
+
+
+def _cast(models, dtype):
+    ref_model, ref_params, model, params = models
+    jdt, tdt = DTYPES[dtype]
+    return (ref_model, jax.tree.map(lambda a: a.astype(jdt), ref_params),
+            model, tree_map(lambda t: t.to(tdt), params))
+
+
+def _assert_cache_close(got, want, dtype, tol):
+    """One cache, ``got`` (torch leaves) against ``want`` (jax leaves):
+    float K/V within ``tol``.  An int8 cache is compared dequantized
+    (``k * ks``): within ``tol`` plus one quantization step, since a value
+    within noise of a rounding boundary quantizes one step apart in the
+    two packages."""
+    assert got.keys() == want.keys()
+    np_ = lambda a: np.asarray(a.astype(jnp.float32))
+    if "ks" not in got:
+        for kk in got:
+            np.testing.assert_allclose(got[kk].float().numpy(),
+                                       np_(want[kk]), atol=tol, rtol=tol)
+        return
+    for kk in ("k", "v"):
+        deq = (got[kk].float() * got[kk + "s"].float()[..., None]).numpy()
+        step = np_(want[kk + "s"])[..., None]
+        deq_ref = np_(want[kk]) * step
+        excess = np.abs(deq - deq_ref) - step
+        assert excess.max() <= tol, (kk, excess.max())
 
 
 def test_config_copy_matches_reference():
@@ -94,9 +144,14 @@ def _tables():
     return np.array([[3, 7, 1, 12], [0, 9, 12, 12]], np.int32)
 
 
-def _ref_cache(cfg, dtype):
+def _ref_cache(cfg, dtype, kv_quant=False):
     shape = (cfg.num_layers, N_BLOCKS + 1, BS, cfg.num_kv_heads,
              cfg.resolved_head_dim)
+    if kv_quant:
+        return {"l0": {"k": jnp.zeros(shape, jnp.int8),
+                       "v": jnp.zeros(shape, jnp.int8),
+                       "ks": jnp.zeros(shape[:-1], jnp.bfloat16),
+                       "vs": jnp.zeros(shape[:-1], jnp.bfloat16)}}
     return {"l0": {"k": jnp.zeros(shape, dtype), "v": jnp.zeros(shape, dtype)}}
 
 
@@ -105,20 +160,18 @@ def _top2_gap(logits):
     return s[:, -1] - s[:, -2]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_chunk_then_decode_logits_and_greedy_tokens(models, dtype):
+def _chunk_then_decode(models, dtype, kv_quant):
     """One packed chunk step (row 0: 40 prompt tokens, row 1: 20), then
     eight greedy decode steps fed the reference's own tokens, so both
     caches hold the same contents throughout."""
-    ref_model, ref_params, model, params = models
+    ref_model, ref_params, model, params = _cast(
+        _with_options(models, kv_quant), dtype)
     jdt, tdt = DTYPES[dtype]
-    tol = LOGIT_TOL[dtype]
-    ref_params = jax.tree.map(lambda a: a.astype(jdt), ref_params)
-    params = tree_map(lambda t: t.to(tdt), params)
+    tol = (LOGIT_TOL_INT8 if kv_quant else LOGIT_TOL)[dtype]
     cfg = model.cfg
     ref_stage = ref_split_for_pp(ref_model, ref_params, 1, paged=True)[0]
     stage = split_for_pp(model, params, 1)[0]
-    rcache = _ref_cache(cfg, jdt)
+    rcache = _ref_cache(cfg, jdt, kv_quant)
     cache = model.paged_cache(cfg.num_layers, N_BLOCKS + 1, BS, device="cpu",
                              dtype=tdt)
     tables = _tables()
@@ -158,11 +211,120 @@ def test_chunk_then_decode_logits_and_greedy_tokens(models, dtype):
                                       np.argmax(ref_l, -1)[clear])
     assert decided >= len(steps)       # the greedy check is not vacuous
     # the caches hold the same K/V in every written slot
-    for kk in ("k", "v"):
-        np.testing.assert_allclose(
-            cache["l0"][kk][:, :N_BLOCKS].float().numpy(),
-            np.asarray(rcache["l0"][kk][:, :N_BLOCKS], np.float32),
-            atol=tol, rtol=tol)
+    _assert_cache_close({k: c[:, :N_BLOCKS] for k, c in cache["l0"].items()},
+                        {k: c[:, :N_BLOCKS] for k, c in rcache["l0"].items()},
+                        dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_then_decode_logits_and_greedy_tokens(models, dtype):
+    _chunk_then_decode(models, dtype, kv_quant=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_cache_chunk_then_decode_logits_and_greedy_tokens(models,
+                                                                dtype):
+    """The int8 cache's chunk and decode modes (the int8 kernels' plain
+    versions) against the reference's."""
+    _chunk_then_decode(models, dtype, kv_quant=True)
+
+
+def _ragged_prompts(cfg, lens=(23, 9, 16)):
+    rng = np.random.default_rng(3)
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
+    return toks, np.array(lens, np.int32) - 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_prefill_logits_and_cache_match_reference(models, dtype, kv_quant):
+    """A right-padded batch of three prompts through both packages' stage
+    ``prefill_fn``, split over two stages: logits at each row's last real
+    token, and the prompt K/V each stage returns (int8 with scales under
+    ``kv_quant``)."""
+    ref_model, ref_params, model, params = _cast(
+        _with_options(models, kv_quant), dtype)
+    tol = LOGIT_TOL[dtype]
+    toks, last = _ragged_prompts(model.cfg)
+    ref_stages = ref_split_for_pp(ref_model, ref_params, 2, paged=True)
+    stages = split_for_pp(model, params, 2)
+    x_ref, x = jnp.asarray(toks), torch.tensor(toks)
+    for ref_stage, stage in zip(ref_stages, stages):
+        x_ref, rcache = ref_stage.prefill_fn(ref_stage.params, x_ref, 0,
+                                             jnp.asarray(last))
+        x, cache = stage.prefill_fn(stage.params, x, 0, torch.tensor(last))
+        for kk in cache["l0"]:
+            assert tuple(cache["l0"][kk].shape) == rcache["l0"][kk].shape
+        _assert_cache_close(cache["l0"], rcache["l0"], dtype, tol)
+        # the next stage takes the same hidden states in both packages
+        x = x.detach().clone()
+        x_ref = jnp.asarray(x.float().numpy()).astype(x_ref.dtype)
+    assert x.shape == (3, model.cfg.vocab_size)
+    ref_logits = np.asarray(x_ref, np.float32)
+    np.testing.assert_allclose(x.numpy(), ref_logits, atol=tol, rtol=0)
+    clear = _top2_gap(ref_logits) > 2 * tol
+    assert clear.any()
+    np.testing.assert_array_equal(np.argmax(x.numpy(), -1)[clear],
+                                  np.argmax(ref_logits, -1)[clear])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_model_prefill_matches_reference(models, kv_quant):
+    """``Model.prefill`` (all layers, logits of the last column) and its
+    returned cache, in fp32."""
+    ref_model, ref_params, model, params = _cast(
+        _with_options(models, kv_quant), "float32")
+    toks, _ = _ragged_prompts(model.cfg, (12, 12))
+    ref_logits, ref_cache = ref_model.prefill(ref_params,
+                                              {"tokens": jnp.asarray(toks)})
+    logits, cache = model.prefill(params, {"tokens": torch.tensor(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                               atol=LOGIT_TOL["float32"], rtol=0)
+    rc = ref_cache["blocks"]["l0"]
+    for kk, leaf in cache["blocks"]["l0"].items():
+        assert tuple(leaf.shape) == rc[kk].shape
+    _assert_cache_close(cache["blocks"]["l0"], rc, "float32",
+                        LOGIT_TOL["float32"])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_run_prefill_writes_the_paged_cache_like_reference(models, kv_quant):
+    """The prefill pass's block scatter (``_StageWorker.run_prefill``) in
+    both engines, fp32, from the same stage input and a block table whose
+    masked entries (a prefix-shared block, the ragged tail) point at the
+    trash block: every physical block but the trash block ends equal, and
+    the masked blocks keep their content."""
+    ref_model, ref_params, model, params = _cast(
+        _with_options(models, kv_quant), "float32")
+    toks, last = _ragged_prompts(model.cfg, (23, 9))
+    kw = dict(pp_degree=1, max_batch=2, max_seq_len=64, kv_block_size=8,
+              kv_blocks=12, prefill_chunk_tokens=None)
+    ref_eng = ref_engine.NaivePPEngine(ref_model, ref_params,
+                                       ref_engine.EngineConfig(**kw))
+    eng = engine.NaivePPEngine(model, params, engine.EngineConfig(**kw))
+    trash = eng.kv_manager.pad_block
+    assert trash == ref_eng.kv_manager.pad_block == 12
+    # row 0: logical block 1 shared (masked); row 1: one block, then trash
+    tables = np.array([[4, trash, 7], [2, trash, trash]], np.int32)
+    ref_w, w = ref_eng.stages[0], eng.stages[0]
+    ref_w.cache = jax.tree.map(
+        lambda c: c.astype(jnp.float32) if c.dtype == jnp.bfloat16
+        and c.ndim == 5 else c, ref_w.cache)
+    ref_w.run_prefill(None, jnp.asarray(toks), 0, None, last, tables)
+    w.run_prefill(torch.tensor(toks), 0, last, tables)
+    _assert_cache_close({k: c[:, :trash] for k, c in w.cache["l0"].items()},
+                        {k: c[:, :trash] for k, c in ref_w.cache["l0"].items()},
+                        "float32", LOGIT_TOL["float32"])
+    for leaf in w.cache["l0"].values():
+        written = {4, 7, 2}
+        for blk in range(trash):
+            if blk not in written:
+                assert not bool(leaf[:, blk].float().abs().sum()), blk
+        assert bool(leaf[:, 4].float().abs().sum())
+    ref_eng.shutdown()
+    eng.shutdown()
 
 
 def test_model_decode_equals_the_stage_decode(models):
@@ -183,10 +345,44 @@ def test_model_decode_equals_the_stage_decode(models):
     torch.testing.assert_close(c1["l0"]["k"], c2["l0"]["k"], rtol=0, atol=0)
 
 
+def test_bridge_serves_the_int8_cache_model(models):
+    """``kv_quant`` changes only the cache: the reference's int8-cache
+    model has the same parameter tree, and the bridge's output fits the
+    port's int8-cache model leaf for leaf."""
+    ref_model, _, _, params = models
+    ref_q = ref_build_model(ref_get_config(ARCH), ShardCtx.single(),
+                            RefModelOptions(kv_quant=True))
+    model_q = build_model(get_config(ARCH), ModelOptions(kv_quant=True))
+    shapes = lambda m: jax.tree.map(lambda a: a.shape, m.abstract_params())
+    assert shapes(ref_q) == shapes(ref_model)
+    specs = tree_map(lambda sp: tuple(sp.shape), model_q.specs)
+    got = tree_map(lambda t: tuple(t.shape), params)
+    assert got == specs
+    cache = model_q.paged_cache(2, 3, BS, device="cpu")
+    assert {k: v.dtype for k, v in cache["l0"].items()} == {
+        "k": torch.int8, "v": torch.int8, "ks": torch.bfloat16,
+        "vs": torch.bfloat16}
+    assert cache["l0"]["ks"].shape == cache["l0"]["k"].shape[:-1]
+
+
 def test_unported_paths_raise(models):
+    """What stays unported raises: the reference's other model options,
+    the MoE family, windowed attention and the contiguous cache layout."""
     _, _, model, params = models
+    cfg = get_config(ARCH)
+    for opt in ("triangular", "fuse_shared_expert", "seq_shard"):
+        with pytest.raises(NotImplementedError, match=opt):
+            build_model(cfg, ModelOptions(**{opt: True}))
+    with pytest.raises(NotImplementedError, match="remat"):
+        build_model(cfg, ModelOptions(remat=False))
     with pytest.raises(NotImplementedError):
-        model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError):
-        build_model(get_config(ARCH).__class__(
-            **{**get_config(ARCH).__dict__, "family": "moe"}))
+        build_model(cfg.__class__(**{**cfg.__dict__, "family": "moe"}))
+    windowed = build_model(cfg.__class__(**{**cfg.__dict__, "window": 8}))
+    with pytest.raises(NotImplementedError, match="window"):
+        windowed.prefill(params, {"tokens": torch.zeros((1, 4),
+                                                        dtype=torch.int32)})
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32))
+    cache = model.paged_cache(cfg.num_layers, N_BLOCKS + 1, BS, device="cpu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        model.decode(params, cache, {"token": i32([5]), "positions": i32([3]),
+                                     "block_tables": None})
