@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,reference]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -9,18 +9,25 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 
 1. build  — compiles every kernel source under ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the seconds.
-2. kernels — runs each of the five kernels at the main path's shapes
-   (stablelm-1.6b: H = Kv = 32, hd = 64, 16-slot pages; prefill of 4
-   right-padded prompts, S = 397) and at one GQA shape (g = 4, with
+2. kernels — runs each of the five full-cache kernels at the main path's
+   shapes (stablelm-1.6b: H = Kv = 32, hd = 64, 16-slot pages; prefill
+   of 4 right-padded prompts, S = 397) and at one GQA shape (g = 4, with
    decode contexts as short as one slot), holds it against its plain
    PyTorch version run in fp32 on the same inputs (|error| <=
-   KERNEL_REL * |plain| + KERNEL_ABS), and times kernel, plain version
-   (bf16, as the port runs it) and, where one exists, one PyTorch call
-   computing the same function (``scaled_dot_product_attention``; a
-   yardstick the port never calls) beside the kernel's bound.  The int8
-   span kernel runs at both p-quantization tiles: one page (the Pallas
-   kernel's) and the engine's (the reference engine's kv_block = 512).
-3. engine — serves full-width stablelm-1.6b (random weights from SEED)
+   KERNEL_REL * |plain| + KERNEL_ABS; a second launch must repeat the
+   first bit for bit), and times kernel, plain version (bf16, as the
+   port runs it) and, where one exists, one PyTorch call computing the
+   same function (``scaled_dot_product_attention``; a yardstick the port
+   never calls) beside the kernel's bound.  The int8 span kernel runs at
+   both p-quantization tiles: one page (the Pallas kernel's) and the
+   engine's (the reference engine's kv_block = 512).
+3. rolling — the sliding-window kernels at mixtral-8x7b's widths (H 32,
+   Kv 8, hd 128): rolling span attention in bf16 and int8 (a 256-token
+   chunk over rows on both sides of W = 4096), the rolling modes of both
+   decode kernels (contexts 100-9000) and flash attention's window band
+   (S = 4500), then each again at W = 64, where every row has wrapped
+   many times (the span with bucket padding), checked and timed as in 2.
+4. engine — serves full-width stablelm-1.6b (random weights from SEED)
    through the port's SiPipeEngine (pp = 2, paged KV), each path with
    every launch counter set to 0 just before it and read just after:
    the chunked policy (256-token chunks; greedy tokens of a 2-request
@@ -31,13 +38,26 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    three serve the same 8 prompts greedily to 32 tokens, and SiPipe's
    streams must equal NaivePPEngine's (int8 monolithic: printed beside
    int8 chunked, which differs from it by design).
-4. reference — a smoke-size model's logits on the card must agree with
-   the same model on the CPU: a chunk step then a decode step, and a
-   prefill then a decode step with a bf16 and with an int8 cache.
+5. mixtral — mixtral-8x7b at its published widths, cut to 16 of its 32
+   layers (32 are ~93 GB of bf16 weights, over one card's 80 GB),
+   through SiPipeEngine (pp = 2, paged rolling KV, max_seq_len 5120):
+   8 greedy requests of 32 tokens, six of 64-512 prompt tokens and two
+   of 4200-4800, longer than the window, under the chunked policy and
+   monolithic prefill, in bf16 and with the int8 cache; on each path
+   every request must finish, its kernels must have launched, and a
+   2-request run (one prompt over W, one request per microbatch) must
+   give SiPipe's greedy streams equal to NaivePPEngine's.
+6. reference — smoke-size models' logits on the card must agree with the
+   same models on the CPU: chunk steps then a decode step, and a prefill
+   then a decode step, with a bf16 and with an int8 cache, for
+   stablelm-1.6b-smoke and for mixtral-8x7b-smoke (its W = 32 rolling
+   cache wrapped).
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits with code 2 and prints no result.
+device it exits with code 2 and prints no result.  ``--phases`` runs a
+subset (engine needs kernels, mixtral needs rolling) and prints no
+result line.
 
 The int8 monolithic and chunked streams are compared, not required to
 be equal: monolithic prefill attends full-precision K/V and chunks the
@@ -173,14 +193,19 @@ def _sdpa_args(case, h, hd, decode: bool):
 
 def _held(name, kernel, plain, args, label, **kw):
     """One launch of ``kernel`` (not counted) held against ``plain`` run
-    in fp32 on the same values; returns the max |error|."""
+    in fp32 on the same values, and a second that must repeat it bit for
+    bit; returns the max |error|."""
     import torch
     launches = kernel.launches
     out = kernel(*args, **kw)
+    again = kernel(*args, **kw)
     torch.cuda.synchronize()
     kernel.launches = launches
-    ref = plain(*[a.float() if a.is_floating_point() else a for a in args],
-                **kw)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {label}: two launches on the same "
+                             f"inputs differ")
+    ref = plain(*[a.float() if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in args], **kw)
     diff = (out.float() - ref).abs()
     err = float(diff.max())
     excess = float((diff - KERNEL_REL * ref.abs()).max())
@@ -358,25 +383,320 @@ def phase_kernels(dev, gen, card):
     return results
 
 
-def _engine(engine_cls, params, model, chunk):
+def _rolling_case(gen, spans, window, h, kv, hd, bs, dev, pad=0):
+    """A packed span over rows r with ``spans[r] = (off, c)``: row r's
+    rolling cache holds positions [0, off) and the span brings off..off+c-1
+    (``pad`` bucket-padding tokens duplicate the last one, so n_valid < T).
+    Each row's table has min(ceil((off + c) / bs), W / bs) shuffled blocks,
+    padded with the trash block (last); every physical block, unused and
+    trash blocks included, holds random values.  Decode rows are spans of
+    one token (off = position)."""
+    import torch
+    need = [min(-(-(o + c) // bs), window // bs) for o, c in spans]
+    nb = max(need)
+    n_phys = sum(need) + 1
+    perm = gen.permutation(n_phys - 1)
+    tables = np.full((len(spans), nb), n_phys - 1, np.int32)
+    used = 0
+    for r, k in enumerate(need):
+        tables[r, :k] = perm[used:used + k]
+        used += k
+    seq = np.concatenate([np.full(c, r) for r, (_, c) in enumerate(spans)])
+    pos = np.concatenate([o + np.arange(c) for o, c in spans])
+    offs = np.array([spans[r][0] for r in seq])
+    n_valid = len(seq)
+    seq, pos, offs = (np.concatenate([a, np.repeat(a[-1:], pad)])
+                      for a in (seq, pos, offs))
+    t = len(seq)
+
+    def rand(*shape):
+        return torch.tensor(gen.standard_normal(shape, np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    k_span, v_span = rand(t, kv, hd), rand(t, kv, hd)
+    if pad:
+        k_span[n_valid:], v_span[n_valid:] = (x[n_valid - 1]
+                                              for x in (k_span, v_span))
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    return dict(q=rand(t, h, hd), k=rand(n_phys, bs, kv, hd),
+                v=rand(n_phys, bs, kv, hd), k_span=k_span, v_span=v_span,
+                tables=i32(tables), positions=i32(pos), rows=i32(seq),
+                offsets=i32(offs), n_valid=n_valid, window=window,
+                np=dict(pos=pos, seq=seq, offs=offs, w_slots=nb * bs))
+
+
+def _rolling_visible(case):
+    """[T, nb * bs] old-cache slots and [T, T] fresh span entries each
+    token sees (the rolling kernels' masks, in numpy)."""
+    c = case["np"]
+    pos, seq, offs, w = c["pos"], c["seq"], c["offs"], case["window"]
+    slot = np.arange(c["w_slots"])
+    stored = offs[:, None] - 1 - (offs[:, None] - 1 - slot[None]) % c["w_slots"]
+    old = (offs[:, None] >= 1) & (stored >= 0) & (stored > pos[:, None] - w)
+    span = (seq[None] == seq[:, None]) & (pos[None] <= pos[:, None]) \
+        & (pos[None] > pos[:, None] - w) \
+        & (np.arange(len(pos))[None] < case["n_valid"])
+    return old, span
+
+
+def _roofline(n_bytes, bf16_ops, int8_ops=0):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the tensor-core rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = bf16_ops / BF16_FLOP_S + int8_ops / INT8_OP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _rolling_bound(case, h, hd, quant=False):
+    """Least time of a rolling span step: the old-cache slots any token of
+    a row sees, read once per row (int8 values and bf16 scales for the
+    int8 cache), the valid fresh span K/V, q and the output (bytes); 4*H*hd
+    operations per visible (token, slot) pair, int8 for the int8 cache's
+    old slots and bf16 otherwise."""
+    old, span = _rolling_visible(case)
+    seq = case["np"]["seq"]
+    kv = case["k"].shape[2]
+    t = len(seq)
+    old_slots = sum(int(old[seq == r].any(0).sum()) for r in np.unique(seq))
+    per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
+    n_bytes = (old_slots * kv * per_slot + case["n_valid"] * kv * hd * 2 * 2
+               + 2 * t * h * hd * 2 + 4 * (case["tables"].numel() + 3 * t))
+    old_ops, span_ops = 4 * h * hd * int(old.sum()), 4 * h * hd * int(span.sum())
+    if quant:
+        return _roofline(n_bytes, span_ops, old_ops)
+    return _roofline(n_bytes, old_ops + span_ops)
+
+
+def _rolling_sdpa_args(case, h, hd):
+    """The library yardstick of a rolling span step: per row, its padded
+    queries [C] against its gathered view plus the whole span's fresh K/V,
+    under a boolean mask of what each token sees."""
+    import torch
+    from repro_torch.models.attention import gather_paged_cache
+    old, span = _rolling_visible(case)
+    seq = case["np"]["seq"]
+    n_rows = int(seq.max()) + 1
+    kg = gather_paged_cache(case["k"], case["tables"])   # [B, S, Kv, hd]
+    vg = gather_paged_cache(case["v"], case["tables"])
+    keys = torch.cat([kg, case["k_span"][None].expand(n_rows, -1, -1, -1)], 1)
+    vals = torch.cat([vg, case["v_span"][None].expand(n_rows, -1, -1, -1)], 1)
+    c = int(np.bincount(seq).max())
+    dev = keys.device
+    q = torch.zeros((n_rows, c, h, hd), dtype=keys.dtype, device=dev)
+    mask = np.zeros((n_rows, c, keys.shape[1]), bool)
+    slot = np.zeros(len(seq), np.int64)
+    seen = np.zeros(n_rows, np.int64)
+    for i, r in enumerate(seq):
+        slot[i], seen[r] = seen[r], seen[r] + 1
+    mask[seq, slot] = np.concatenate([old, span], 1)
+    q[torch.tensor(seq, device=dev), torch.tensor(slot, device=dev)] = case["q"]
+    return (q.transpose(1, 2), keys.transpose(1, 2).contiguous(),
+            vals.transpose(1, 2).contiguous(),
+            torch.tensor(mask, device=dev)[:, None])
+
+
+def phase_rolling_kernels(dev, card):
+    """The sliding-window kernels at mixtral-8x7b's widths (H 32, Kv 8,
+    hd 128, 16-slot pages), at W = 4096 with rows on both sides of the
+    window and at W = 64, where every row has wrapped many times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import (gather_paged_cache, kv_tile,
+                                              quantize_kv)
+
+    gen = np.random.default_rng(SEED + 2)
+    h, kv, hd, bs = 32, 8, 128, 16
+    # a 256-token chunk over 4 rows: a short row, a span crossing W, two
+    # wrapped rows; then the same widths at W = 64 with bucket padding
+    spans = [(100, 64), (4050, 64), (4500, 64), (9000, 64)]
+    spans64 = [(100, 64), (4050, 64), (4500, 64), (9000, 60)]
+    dec = [(p, 1) for p in (99, 700, 2047, 4095, 4096, 4600, 7000, 8999)]
+    results = []
+    for name, kernel, plain, quant, src, replaces in (
+            ("paged_span_attention_rolling", ksa.paged_span_attention_rolling,
+             ksa.paged_span_attention_rolling_plain, False,
+             "src/repro_torch/csrc/paged_span_attention_rolling.cu",
+             "src/repro/kernels/span_attention.py:703"),
+            ("paged_span_attention_rolling_quant",
+             ksa.paged_span_attention_rolling_quant,
+             ksa.paged_span_attention_rolling_quant_plain, True,
+             "src/repro_torch/csrc/paged_span_attention_rolling_quant.cu",
+             "src/repro/kernels/span_attention.py:761")):
+        entry = None
+        for window, sp, pad in ((4096, spans, 0), (64, spans64, 4)):
+            case = _rolling_case(gen, sp, window, h, kv, hd, bs, dev, pad)
+            cache = [case["k"], case["v"]]
+            if quant:
+                (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
+                cache = [k8, ks, v8, vs]
+            args = [case["q"], *cache, case["k_span"], case["v_span"],
+                    case["tables"], case["positions"], case["rows"],
+                    case["offsets"], case["n_valid"]]
+            kw = {"window": window}
+            label = (f"W={window} H={h} Kv={kv} hd={hd} "
+                     f"T={case['q'].shape[0]} n_valid={case['n_valid']}")
+            if quant:
+                width = case["tables"].shape[1] * bs
+                label += f" p-tile={kv_tile(512, width)}"
+            err = _held(name, kernel, plain, args, label, **kw)
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+            lib_ms = None
+            if not quant:
+                sdpa = _rolling_sdpa_args(case, h, hd)
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True), reps=20)
+                del sdpa
+            bound_ms, bound_by = _rolling_bound(case, h, hd, quant)
+            print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
+                  f" bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
+                  flush=True)
+            entry = dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=0, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        results.append((kernel, entry))
+
+    for name, kernel, plain, quant, src, replaces in (
+            ("paged_decode_attention_rolling",
+             kda.paged_decode_attention_rolling,
+             kda.paged_decode_attention_plain, False,
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:72 (rolling mode: the "
+             "reference runs jnp decode_attention(rolling_window) on the "
+             "gathered view, transformer.py:102-146)"),
+            ("paged_decode_attention_quant_rolling",
+             kda.paged_decode_attention_quant_rolling,
+             kda.paged_decode_attention_quant_plain, True,
+             "src/repro_torch/csrc/decode_attention_quant.cu",
+             "src/repro/models/attention.py:553 (jnp decode_attention_quant"
+             "(rolling_window); no Pallas kernel)")):
+        entry = None
+        for window in (4096, 64):
+            case = _rolling_case(gen, dec, window, h, kv, hd, bs, dev)
+            cache = [case["k"], case["v"]]
+            if quant:
+                (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
+                cache = [k8, ks, v8, vs]
+            args = [case["q"], *cache, case["tables"], case["positions"]]
+            kw = {"window": window}
+            pkw = {"rolling_window": window}
+            pl = lambda *a, **_: plain(*a, **pkw)
+            err = _held(name, kernel, pl, args,
+                        f"W={window} B=8 contexts 100-9000", **kw)
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            plain_ms = _time_ms(lambda: pl(*args), reps=3, warmup=1)
+            vis = np.minimum(case["np"]["pos"] + 1, window)
+            per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
+            n_bytes = (int(vis.sum()) * kv * per_slot + 2 * 8 * h * hd * 2
+                       + 4 * (case["tables"].numel() + 8))
+            ops = 4 * h * hd * int(vis.sum())
+            bound_ms, bound_by = (_roofline(n_bytes, 0, ops) if quant
+                                  else _roofline(n_bytes, ops))
+            lib_ms = None
+            if not quant:
+                kg = gather_paged_cache(case["k"], case["tables"]).transpose(1, 2)
+                vg = gather_paged_cache(case["v"], case["tables"]).transpose(1, 2)
+                idx = torch.arange(kg.shape[2], device=dev)
+                mask = (idx[None] < torch.tensor(vis, device=dev)[:, None])
+                q4 = case["q"][:, :, None]               # [B, H, 1, hd]
+                m4 = mask[:, None, None]
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=m4, enable_gqa=True), reps=20)
+                del kg, vg
+            print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
+                  f" bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
+                  flush=True)
+            entry = dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=0, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        results.append((kernel, entry))
+
+    # windowed flash: B = 2, S = 4500 at W = 4096 (the main shape), then
+    # S = 397 at W = 64; the plain version is local_attention (fp32 here)
+    entry = None
+    for b, s, window in ((2, 4500, 4096), (2, 397, 64)):
+        q, k, v = (torch.tensor(gen.standard_normal((b, s, n, hd), np.float32),
+                                device=dev).to(torch.bfloat16)
+                   for n in (h, kv, kv))
+        qpos = torch.arange(s, dtype=torch.int32, device=dev)
+        args = [q, k, v, qpos]
+        kw = {"window": window, "kv_block": min(512, window)}
+        err = _held("flash_attention_windowed", kfa.flash_attention,
+                    kfa.flash_attention_plain, args,
+                    f"B={b} S={s} W={window} H={h} Kv={kv} hd={hd}", **kw)
+        if entry is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            continue
+        ms = _kernel_ms(kfa.flash_attention,
+                        lambda: kfa.flash_attention(*args, **kw))
+        plain_ms = _time_ms(lambda: kfa.flash_attention_plain(*args, **kw),
+                            reps=3, warmup=1)
+        i = torch.arange(s, device=dev)
+        band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True), reps=20)
+        pairs = int(np.minimum(np.arange(s) + 1, window).sum())
+        n_bytes = 2 * b * s * (2 * h + 2 * kv) * hd + 4 * s
+        bound_ms, bound_by = _roofline(n_bytes, 4 * hd * h * b * pairs)
+        print(f"kernel flash_attention_windowed: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}) on {card}", flush=True)
+        entry = dict(name="flash_attention_windowed", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:80 "
+                              "(window band)",
+                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    results.append((kfa.flash_attention, entry))
+    return results
+
+
+def _engine(engine_cls, params, model, chunk, max_seq_len=640, max_batch=4):
     """pp = 2, paged KV; ``chunk`` tokens per iteration under the chunked
     policy, or None: the default policy, monolithic prefill."""
     from repro_torch.core.engine import EngineConfig
-    ecfg = EngineConfig(pp_degree=2, max_batch=4, max_seq_len=640,
+    ecfg = EngineConfig(pp_degree=2, max_batch=max_batch,
+                        max_seq_len=max_seq_len,
                         prefill_chunk_tokens=chunk,
                         scheduling_policy="chunked" if chunk else "auto",
                         seed=SEED)
     return engine_cls(model, params, ecfg)
 
 
-def _serve(engine_cls, model, params, prompts, sp, chunk, kernels):
+def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
+           max_seq_len=640, max_batch=4, trace=None):
     """Serve ``prompts`` to the end, every launch counter set to 0 just
     before and read just after.  Returns the streams (by request), the
     engine's metrics, the wall seconds, the launches and the peak
-    device memory."""
+    device memory.  ``trace``, a list, receives each iteration's members
+    and spans."""
     import torch
     gc.collect()        # the previous run's engine (its threads hold cycles)
-    eng = _engine(engine_cls, params, model, chunk)
+    eng = _engine(engine_cls, params, model, chunk, max_seq_len, max_batch)
+    if trace is not None:
+        schedule = eng.scheduler.schedule
+
+        def record(it):
+            s = schedule(it)
+            if s is not None:
+                trace.append((list(s.seq_ids), s.spans))
+            return s
+        eng.scheduler.schedule = record
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k, _ in kernels:
@@ -500,59 +820,168 @@ def phase_engine(dev, gen, kernels, card):
     del params
 
 
-def phase_reference(dev):
-    """Smoke-size model, same weights on the card (CUDA kernels) and on
-    the CPU (plain versions): a chunk step then a decode step over a bf16
-    cache, and a prefill step (written into the paged cache) then a
-    decode step over a bf16 and over an int8 cache."""
+def phase_mixtral(dev, kernels, card):
+    """mixtral-8x7b at its published widths (8 experts top-2, W = 4096),
+    cut to the depth one card holds, through SiPipeEngine (pp = 2, paged rolling
+    KV): 8 requests, two of them longer than the window, under the
+    chunked policy and monolithic prefill, in bf16 and with the int8
+    cache."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import split_for_pp, write_prefill
+    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
+    from repro_torch.core.sampling_params import SamplingParams
     from repro_torch.models.registry import ModelOptions, build_model
-    from repro_torch.models.stacked import tree_map
 
-    cfg = get_config("stablelm-1.6b-smoke")
-    params = build_model(cfg).init(SEED, device="cpu")
-    toks = np.random.default_rng(SEED).integers(2, cfg.vocab_size, 60)
-    padded = np.zeros((2, 40), np.int64)          # right-padded prompts
-    padded[0], padded[1, :23] = toks[:40], toks[37:]
-    for label, quant, first in (("chunk+decode bf16", False, "chunk"),
-                                ("prefill+decode bf16", False, "prefill"),
-                                ("prefill+decode int8", True, "prefill")):
-        model = build_model(cfg, ModelOptions(kv_quant=quant))
-        logits = {}
-        for d in ("cpu", dev):
-            p = tree_map(lambda x: x.to(d), params)
-            stage = split_for_pp(model, p, 1)[0]
-            cache = model.paged_cache(cfg.num_layers, 9, 16, device=d)
-            t = lambda a: torch.tensor(np.asarray(a, np.int32), device=d)
-            tables = t([[0, 1, 2, 8], [3, 4, 8, 8]])
-            if first == "chunk":
-                pos = np.concatenate([np.arange(40), np.arange(20)])
-                seq = np.repeat([0, 1], [40, 20])
-                out1 = stage.chunk_fn(stage.params, cache, t(toks), t(pos),
-                                      t(seq), t([39, 59]), tables)
-                lens = [40, 20]
-            else:
-                out1, fresh = stage.prefill_fn(stage.params, t(padded), 0,
-                                               t([39, 22]))
-                write_prefill(cache, fresh, tables, 8)
-                lens = [40, 23]
-            out2 = stage.decode_fn(stage.params, cache, t([5, 7]), t(lens),
-                                   tables)
-            logits[str(d)] = torch.cat([out1, out2]).float().cpu()
-        a, b = logits["cpu"], logits[str(dev)]
-        err = float((a - b).abs().max())
-        print(f"reference {label}: smoke logits card vs CPU max_abs_err="
-              f"{err:.3e} (tol {LOGIT_TOL}), shape {tuple(b.shape)}",
-              flush=True)
-        if not bool(torch.isfinite(b).all()) or not err <= LOGIT_TOL:
-            raise AssertionError(f"{label}: smoke logits on the card "
-                                 f"disagree with the CPU")
+    from repro_torch.configs.mixtral_8x7b import ONE_CARD_LAYERS
+
+    gen = np.random.default_rng(SEED + 3)
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, num_layers=ONE_CARD_LAYERS)
+    model = build_model(cfg)
+    gc.collect()        # the stablelm phase's engines and weights
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"engine: {cfg.name} L={cfg.num_layers} of {full.num_layers} "
+          f"(one 80 GB card: {full.num_layers} layers are ~93 GB of bf16 "
+          f"weights) d={cfg.d_model} H={cfg.num_heads} Kv={cfg.num_kv_heads}"
+          f" hd={cfg.resolved_head_dim} experts={cfg.moe.num_experts} "
+          f"top-{cfg.moe.top_k} d_ff={cfg.moe.expert_d_ff} W={cfg.window} "
+          f"vocab={cfg.vocab_size}: init {time.monotonic() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    lens = np.concatenate([gen.integers(64, 513, 6),
+                           gen.integers(4200, 4801, 2)])
+    lens = lens[gen.permutation(8)]
+    prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist() for n in lens]
+    pair = [prompts[int(np.argmin(lens))], prompts[int(np.argmax(lens))]]
+    entries = {e["name"]: e for _, e in kernels}
+    greedy = SamplingParams(greedy=True, max_new_tokens=32)
+    greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
+    for label, opts, chunk, names in (
+            ("mixtral chunked", ModelOptions(), 256,
+             ("paged_span_attention_rolling",
+              "paged_decode_attention_rolling")),
+            ("mixtral monolithic", ModelOptions(), None,
+             ("flash_attention_windowed", "paged_decode_attention_rolling")),
+            ("mixtral int8 chunked", ModelOptions(kv_quant=True), 256,
+             ("paged_span_attention_rolling_quant",
+              "paged_decode_attention_quant_rolling")),
+            ("mixtral int8 monolithic", ModelOptions(kv_quant=True), None,
+             ("flash_attention_windowed",
+              "paged_decode_attention_quant_rolling"))):
+        mdl = build_model(cfg, opts)
+        run = _serve(SiPipeEngine, mdl, params, prompts, greedy, chunk,
+                     kernels, max_seq_len=5120)
+        launches = _report(label, prompts, run, card, 32, names)
+        for name in names:       # each entry: the first path that runs it
+            if not entries[name]["launches"]:
+                entries[name]["launches"] = launches[name]
+        # one request per microbatch, so that each step's composition
+        # (which an MoE's capacity and the bucket padding see) cannot
+        # depend on the overlapped engine's timing
+        traces = ([], [])
+        a, b = (_serve(cls, mdl, params, pair, greedy16, chunk, kernels,
+                       max_seq_len=5120, max_batch=1, trace=tr)[0]
+                for cls, tr in zip((SiPipeEngine, NaivePPEngine), traces))
+        print(f"engine {label} 2-request (prompts {len(pair[0])}, "
+              f"{len(pair[1])}, one per microbatch): schedules equal: "
+              f"{traces[0] == traces[1]}; greedy SiPipe == Naive: {a == b} "
+              f"({a[1][:8]}...)", flush=True)
+        if traces[0] != traces[1]:
+            raise AssertionError(f"{label}: schedules differ: {traces}")
+        if a != b:
+            raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
+    del params
+    torch.cuda.empty_cache()
 
 
-def main() -> int:
+def _smoke_logits(model, params, d, first, toks, padded):
+    """A smoke model's steps on device ``d``: a chunk step (a windowed
+    model: two, the second wrapping its W = 32 rolling cache) or a prefill
+    step written into the paged cache, then a decode step; returns every
+    step's logits."""
     import torch
+    from repro_torch.core.engine import split_for_pp, write_prefill
+    from repro_torch.models.stacked import tree_map
+    cfg = model.cfg
+    stage = split_for_pp(model, tree_map(lambda x: x.to(d), params), 1)[0]
+    cache = model.paged_cache(cfg.num_layers, 9, 16, device=d)
+    t = lambda a: torch.tensor(np.asarray(a, np.int32), device=d)
+    tables = t([[0, 1], [2, 3]] if cfg.window else [[0, 1, 2, 8], [3, 4, 8, 8]])
+    outs = []
+    if first == "prefill":
+        out, fresh = stage.prefill_fn(stage.params, t(padded), 0, t([39, 22]))
+        write_prefill(cache, fresh, tables, 8)
+        outs.append(out)
+        lens = [40, 23]
+    else:
+        # (row 0, row 1) span lengths per chunk step; a window keeps each
+        # row's span within W
+        steps = [(30, 20), (16, 10)] if cfg.window else [(40, 20)]
+        done = [0, 0]
+        for n0, n1 in steps:
+            pos = np.concatenate([done[0] + np.arange(n0),
+                                  done[1] + np.arange(n1)])
+            seq = np.repeat([0, 1], [n0, n1])
+            outs.append(stage.chunk_fn(
+                stage.params, cache, t(toks[:n0 + n1]), t(pos), t(seq),
+                t([n0 - 1, n0 + n1 - 1]), tables, span_starts=t(done),
+                n_valid=n0 + n1))
+            done = [done[0] + n0, done[1] + n1]
+        lens = done
+    outs.append(stage.decode_fn(stage.params, cache, t([5, 7]), t(lens),
+                                tables))
+    return torch.cat(outs).float().cpu()
+
+
+def phase_reference(dev):
+    """Smoke-size models, same weights on the card (CUDA kernels) and on
+    the CPU (plain versions): a chunk step then a decode step over a bf16
+    cache, and a prefill step (written into the paged cache) then a
+    decode step over a bf16 and over an int8 cache; stablelm-1.6b-smoke
+    over a full cache and mixtral-8x7b-smoke (MoE) over a rolling one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import ModelOptions, build_model
+    import torch
+
+    for arch in ("stablelm-1.6b-smoke", "mixtral-8x7b-smoke"):
+        cfg = get_config(arch)
+        params = build_model(cfg).init(SEED, device="cpu")
+        toks = np.random.default_rng(SEED).integers(2, cfg.vocab_size, 60)
+        padded = np.zeros((2, 40), np.int64)      # right-padded prompts
+        padded[0], padded[1, :23] = toks[:40], toks[37:]
+        for label, quant, first in (("chunk+decode bf16", False, "chunk"),
+                                    ("prefill+decode bf16", False, "prefill"),
+                                    ("prefill+decode int8", True, "prefill"),
+                                    ("chunk+decode int8", True, "chunk")):
+            model = build_model(cfg, ModelOptions(kv_quant=quant))
+            a, b = (_smoke_logits(model, params, d, first, toks, padded)
+                    for d in ("cpu", dev))
+            err = float((a - b).abs().max())
+            print(f"reference {arch} {label}: logits card vs CPU "
+                  f"max_abs_err={err:.3e} (tol {LOGIT_TOL}), shape "
+                  f"{tuple(b.shape)}", flush=True)
+            if not bool(torch.isfinite(b).all()) or not err <= LOGIT_TOL:
+                raise AssertionError(f"{arch} {label}: logits on the card "
+                                     f"disagree with the CPU")
+
+
+PHASES = ("kernels", "rolling", "engine", "mixtral", "reference")
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %s (default: all; a "
+                         "subset prints no result line)" % (PHASES,))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -571,12 +1000,24 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
-    kernels = phase_kernels(dev, gen, card)
-    phase_engine(dev, gen, kernels, card)
-    phase_reference(dev)
+    kernels = []
+    if "kernels" in phases:
+        kernels += phase_kernels(dev, gen, card)
+    if "rolling" in phases:
+        kernels += phase_rolling_kernels(dev, card)
+    if "engine" in phases:
+        phase_engine(dev, gen, kernels, card)
+    if "mixtral" in phases:
+        phase_mixtral(dev, kernels, card)
+    if "reference" in phases:
+        phase_reference(dev)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)
     print(card)
     print(json.dumps({"kernels": [e for _, e in kernels]}))
+    if phases != list(PHASES):
+        print(f"chip_smoke: partial run ({args.phases}): no result",
+              flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,8 +20,11 @@ into the paged cache; span policies (chunked, disaggregated, adaptive)
 take ``chunk_fn`` (packed spans, the paged span-attention kernel); pure
 decode iterations take ``decode_fn`` (the paged decode-attention kernel).
 A model built with ``ModelOptions(kv_quant=True)`` keeps an int8 cache
-and runs the int8 twins of the paged kernels.  The contiguous layout is
-not ported yet (ROADMAP.md queue 1).
+and runs the int8 twins of the paged kernels.  A sliding-window model
+(mixtral's MoE family) keeps a rolling cache, position p at logical slot
+p % W, so a sequence holds at most W / block_size blocks and its chunks
+take the rolling span kernels.  The contiguous layout is not ported yet
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -78,7 +81,7 @@ class PPStage:
     params: Any
     prefill_fn: Callable                 # (params, x_or_tokens[B,S], pos0, last_idx[B]) -> (x|logits, cache)
     decode_fn: Callable                  # (params, cache, x_or_tokens[B], positions[B], tables) -> x|logits
-    chunk_fn: Callable                   # (params, cache, x_or_tokens[T], positions[T], seq_idx[T], last_idx[B], tables) -> x|logits
+    chunk_fn: Callable                   # (params, cache, x_or_tokens[T], positions[T], seq_idx[T], last_idx[B], tables, span_starts[B], n_valid) -> x|logits
 
     @property
     def is_first(self) -> bool:
@@ -123,8 +126,9 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
         """Whole-prompt prefill of a right-padded batch [B, S].
         ``last_idx`` [B]: each sequence's final real position; logits
         come from the true last token, not the pad tail (and windowed
-        models would need the real lengths too).  Returns the stage output
-        and the batch's fresh cache, leaves [groups, B, S, ...]."""
+        models fill their rolling caches by the real lengths).  Returns
+        the stage output and the batch's fresh cache, leaves [groups, B,
+        S, ...] ([groups, B, W, ...] for a window W)."""
         s = x_or_tokens.shape[1]
         dev = x_or_tokens.device
         positions = pos0 + torch.arange(s, dtype=torch.int32, device=dev)
@@ -148,14 +152,18 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
         return model.lm_head(params, x) if last else x
 
     def chunk_fn(params, cache, x_or_tokens, positions, seq_idx, last_idx,
-                 tables):
+                 tables, span_starts=None, n_valid=None):
         """Mixed chunked-prefill/decode step over the packed ragged layout:
         the batch's valid span tokens concatenated into flat [T] vectors
         (T = the power-of-two bucket; padding duplicates the last valid
         token).  ``seq_idx`` [T] maps each token to its batch row and
         ``last_idx`` [B] is the packed index of each row's final token,
-        whose logits feed the sampler.  ``tables`` as in ``decode_fn``."""
+        whose logits feed the sampler.  ``tables`` as in ``decode_fn``.
+        Windowed models also take ``span_starts`` [B] (each row's span
+        offset: the tokens already in its rolling cache) and ``n_valid``,
+        the unpadded token count (an int)."""
         ctx = model.make_ctx("chunk", positions, seq_idx=seq_idx,
+                             span_starts=span_starts, n_valid=n_valid,
                              block_tables=tables)
         x = model.embed_tokens(params, x_or_tokens) if first else x_or_tokens
         x = run_stack(sub, params["blocks"], x, ctx, cache)
@@ -164,27 +172,36 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
     return PPStage(idx, p, bounds, sp, prefill_fn, decode_fn, chunk_fn)
 
 
+def _leaves(cache):
+    """(layer, leaf name, tensor) of a stage cache ``{"l<i>": {...}}``."""
+    return [(lk, kk, t) for lk, layer in cache.items()
+            for kk, t in layer.items()]
+
+
 def write_prefill(cache, fresh, tables: torch.Tensor, pad_block: int) -> None:
     """Write a prefill pass's K/V into the paged cache, in place.
-    ``fresh`` leaves are [groups, B, S, ...] (``prefill_fn``'s cache);
-    ``cache`` leaves [groups, n_blocks + 1, bs, ...]; ``tables`` [B, nb]
-    int32.  The prompt is cut into blocks of bs slots scattered through
-    the table; slots past a row's table (the ragged pad tail) land in the
-    trash block ``pad_block``, as do blocks the table masks."""
-    b, sp = next(iter(fresh["l0"].values())).shape[1:3]
-    bs = next(iter(cache["l0"].values())).shape[2]
+    ``fresh`` leaves are [groups, B, S, ...] (``prefill_fn``'s cache; S
+    is W for a rolling cache, whose slot s holds a position congruent to
+    s mod W); ``cache`` leaves [groups, n_blocks + 1, bs, ...]; ``tables``
+    [B, nb] int32.  The prompt is cut into blocks of bs slots scattered
+    through the table; slots past a row's table (the ragged pad tail, a
+    short prompt's empty window slots) land in the trash block
+    ``pad_block``, as do blocks the table masks."""
+    leaves = _leaves(fresh)
+    b, sp = leaves[0][2].shape[1:3]
+    bs = _leaves(cache)[0][2].shape[2]
     spb = -(-sp // bs)
     st = torch.full((b, spb), pad_block, dtype=torch.long,
                     device=tables.device)
     k = min(spb, tables.shape[1])
     st[:, :k] = tables[:, :k]
-    for kk, c_new in fresh["l0"].items():
+    for lk, kk, c_new in leaves:
         pad = spb * bs - sp
         if pad:
             c_new = torch.cat([c_new, c_new.new_zeros(
                 (*c_new.shape[:2], pad, *c_new.shape[3:]))], 2)
         # [n, B, spb * bs, ...] -> [n, B, spb, bs, ...] blocks
-        cache["l0"][kk][:, st] = c_new.reshape(
+        cache[lk][kk][:, st] = c_new.reshape(
             *c_new.shape[:2], spb, bs, *c_new.shape[3:])
 
 
@@ -333,7 +350,7 @@ class _StageWorker:
         ``dst``."""
         src = self._dev(copies[:, 0]).long()
         dst = self._dev(copies[:, 1]).long()
-        for leaf in self.cache["l0"].values():
+        for _, _, leaf in _leaves(self.cache):
             leaf[:, dst] = leaf[:, src]
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -360,7 +377,9 @@ class _StageWorker:
                 stage.params, self.cache, x_in,
                 self._dev(bufs["pack_positions"]),
                 self._dev(bufs["pack_seq"]),
-                self._dev(bufs["last_index"]), tables)
+                self._dev(bufs["last_index"]), tables,
+                span_starts=self._dev(bufs["positions"]),
+                n_valid=int(bufs["n_valid"][0]))
         else:
             out = stage.decode_fn(stage.params, self.cache, x_in,
                                   self._dev(bufs["positions"]), tables)
@@ -411,28 +430,37 @@ class PPEngineBase:
             raise ValueError(
                 f"unknown kv_layout {cfg.kv_layout!r}; choose from "
                 "('auto', 'contiguous', 'paged')")
-        if cfg.kv_layout == "contiguous":
-            raise NotImplementedError(f"the contiguous KV layout {_NOT_PORTED}")
-        if self.arch.family != "dense" or self.arch.window:
+        if self.arch.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {self.arch.family!r} (window {self.arch.window}) "
-                f"{_NOT_PORTED}; the port serves dense full-attention models")
+                f"family {self.arch.family!r} {_NOT_PORTED}; the port "
+                "serves the dense and moe families")
         if cfg.kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, "
                              f"got {cfg.kv_block_size}")
+        window = self.arch.window or None
+        if cfg.kv_layout == "auto" and window and window % cfg.kv_block_size:
+            # the reference falls back to contiguous rows here; a rolling
+            # cache needs whole-block windows (explicit kv_layout='paged'
+            # raises in BlockSpaceManager instead)
+            cfg = dataclasses.replace(cfg, kv_layout="contiguous")
+        if cfg.kv_layout == "contiguous":
+            raise NotImplementedError(f"the contiguous KV layout {_NOT_PORTED}")
         cfg = dataclasses.replace(cfg, kv_layout="paged")
         self.cfg = cfg
         n_blocks = cfg.kv_blocks
         if n_blocks is None:
             # equal budget to contiguous rows: rows x the blocks ONE
-            # worst-case sequence needs
+            # worst-case sequence needs (a window's worth for rolling
+            # caches)
             n_blocks = (cfg.max_batch * cfg.pp_degree *
-                        -(-cfg.max_seq_len // cfg.kv_block_size))
+                        -(-(window or cfg.max_seq_len) // cfg.kv_block_size))
         self.kv_manager = BlockSpaceManager(
-            n_blocks, cfg.kv_block_size, slot_cap=None,
+            n_blocks, cfg.kv_block_size, slot_cap=window,
             max_slots=cfg.max_seq_len,
             max_table_buckets=cfg.max_table_buckets,
-            prefix_cache=cfg.enable_prefix_caching)
+            # rolling caches index slots by pos % window, so a block's
+            # content is position-dependent: not shareable
+            prefix_cache=cfg.enable_prefix_caching and window is None)
         if n_blocks < self.kv_manager.blocks_for(cfg.max_seq_len):
             raise ValueError(
                 f"kv_blocks={n_blocks} x block_size={cfg.kv_block_size}"
@@ -452,6 +480,15 @@ class PPEngineBase:
                                    kv_manager=self.kv_manager,
                                    decode_enlarge_factor=cfg.decode_enlarge_factor,
                                    seq_id_fn=self._alloc.next)
+        if self.scheduler.chunked and window and \
+                self.scheduler.token_budget > window:
+            # rolling caches scatter one slot per span token (slot = pos %
+            # W): a chunk wider than the window would write conflicting
+            # values into one slot, so the budget must fit the window
+            raise ValueError(
+                f"prefill_chunk_tokens budget {self.scheduler.token_budget} "
+                f"exceeds the sliding window {window}; chunks must fit the "
+                "rolling KV cache")
         self.seq_cache = SequenceCache(cfg.max_batch * cfg.pp_degree,
                                        kv=self.kv_manager)
         self.stages = [_StageWorker(s, self)

@@ -16,6 +16,10 @@
 // vs and its largest magnitude, the quantization of p * vs, and the
 // exact int8 AV dot; out = o32 * ps.  Shared pieces, numerics and bound:
 // paged_attention_quant.cuh.
+//
+// Rolling mode (window > 0, sliding-window models; the reference's
+// decode_attention_quant(rolling_window=W)): the visible slots are
+// 0..min(positions[b] + 1, W) - 1 of the row, all valid.
 #include "paged_attention_quant.cuh"
 
 __global__ void __launch_bounds__(pquant::kThreads)
@@ -25,7 +29,7 @@ paged_decode_attention_quant_kernel(
     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tables,
     const int* __restrict__ positions, float* __restrict__ scratch,
     __nv_bfloat16* __restrict__ out, int H, int Kv, int hd, int bs, int nb,
-    int n_blocks, float scale) {
+    int n_blocks, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, kh = blockIdx.y;
   const int g = H / Kv;
@@ -37,7 +41,7 @@ paged_decode_attention_quant_kernel(
   float* unused;
   const pquant::Smem s = pquant::carve(smem, g, hd, 0, &unused);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_slots = min(pos + 1, stride);
+  const int n_slots = min(window ? min(pos + 1, window) : pos + 1, stride);
   pquant::check_table(table, n_slots, bs, n_blocks);
   pquant::load_query(q + ((size_t)b * H + kh * g) * hd, g, hd, s);
   __syncthreads();
@@ -79,7 +83,7 @@ extern "C" int paged_decode_attention_quant(
     const void* q, const void* k8, const void* ks, const void* v8,
     const void* vs, const void* tables, const void* positions, void* scratch,
     void* out, int B, int H, int Kv, int hd, int bs, int nb, int n_blocks,
-    float scale, void* stream) {
+    int window, float scale, void* stream) {
   if (B == 0) return 0;
   if (hd % 16) return (int)cudaErrorInvalidValue;
   const size_t smem = pquant::smem_bytes(H / Kv, hd, 0);
@@ -91,6 +95,6 @@ extern "C" int paged_decode_attention_quant(
       (const __nv_bfloat16*)ks, (const signed char*)v8,
       (const __nv_bfloat16*)vs, (const int*)tables, (const int*)positions,
       (float*)scratch, (__nv_bfloat16*)out, H, Kv, hd, bs, nb, n_blocks,
-      scale);
+      window, scale);
   return (int)cudaGetLastError();
 }

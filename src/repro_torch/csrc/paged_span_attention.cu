@@ -24,8 +24,9 @@ paged_span_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int pos = positions[t];
   assert(row >= 0 && row < B && pos >= 0);  // a corrupt batch fails loudly
   paged::attend(q + (size_t)t * H * hd, k_cache, v_cache,
-                tables + (size_t)row * nb, pos, kh, Kv, H / Kv, hd, bs, nb,
-                n_blocks, tile, scale, out + (size_t)t * H * hd);
+                tables + (size_t)row * nb, min(pos + 1, nb * bs), kh, Kv,
+                H / Kv, hd, bs, n_blocks, tile, scale,
+                out + (size_t)t * H * hd);
 }
 
 extern "C" int paged_span_attention(const void* q, const void* k_cache,

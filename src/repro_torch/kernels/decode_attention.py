@@ -12,8 +12,16 @@ CUDA kernels:
   (repro/models/transformer.py:110-133).  It reads the int8 cache through
   the table (``csrc/paged_attention_quant.cuh``).
 
+Both have a rolling mode for sliding-window models, whose cache keeps
+position p at slot p % W: the visible slots are 0..min(pos + 1, W) - 1
+(the reference's ``rolling_window`` decode, transformer.py:102-146).  It
+is the port's own (the Pallas ``decode_attention`` has none), and its
+wrappers, :func:`paged_decode_attention_rolling` and
+:func:`paged_decode_attention_quant_rolling`, count their launches apart
+from the full-cache ones.
+
 Both are memory-bound: the least they must move is each row's K/V
-prefix once, plus q and the output.
+prefix (or window) once, plus q and the output.
 
 Plain versions: :func:`paged_decode_attention_plain`, the reference's
 paged decode (``attention.decode_attention`` over ``gather_paged_cache``,
@@ -40,44 +48,39 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel():
     return _build.load("decode_attention", "paged_decode_attention",
-                       [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P])
+                       [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P])
 
 
 @functools.cache
 def _quant_kernel():
     return _build.load("decode_attention_quant",
                        "paged_decode_attention_quant",
-                       [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P])
+                       [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P])
+
+
+def _check_window(window: int) -> None:
+    if window < 1:
+        raise ValueError(f"a rolling window must be >= 1, got {window}")
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_tables,
-                                 positions):
+                                 positions, *, rolling_window: int = 0):
     """q [B, H, hd]; caches [n_blocks, bs, Kv, hd]; block_tables [B, nb];
     positions [B] -> [B, H*hd]."""
     return decode_attention(q, gather_paged_cache(k_cache, block_tables),
                             gather_paged_cache(v_cache, block_tables),
-                            positions)
+                            positions, rolling_window=rolling_window)
 
 
-def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, block_tables: torch.Tensor,
-                           positions: torch.Tensor, *,
-                           rolling_window: int = 0) -> torch.Tensor:
-    """Row b's new token attends to slots ``0..positions[b]`` of table
-    row b.  q [B, H, hd]; caches [n_blocks, bs, Kv, hd]; block_tables
-    [B, nb] int32; positions [B] int32 -> [B, H*hd].  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (bf16 only)."""
-    if rolling_window:
-        raise NotImplementedError(
-            "rolling-window decode attention is not ported yet "
-            "(ROADMAP.md queue 2)")
+def _decode(wrapper, q, k_cache, v_cache, block_tables, positions, window):
     _paged.check(q, k_cache, v_cache, block_tables, {"positions": positions})
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError(f"block_tables has {block_tables.shape[0]} rows "
                          f"for {q.shape[0]} queries")
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_cache, v_cache,
-                                            block_tables, positions)
+                                            block_tables, positions,
+                                            rolling_window=window)
     b, h, hd = q.shape
     n_blocks, bs, kv = k_cache.shape[:3]
     nb = block_tables.shape[1]
@@ -85,41 +88,61 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    block_tables.data_ptr(), positions.data_ptr(),
                    out.data_ptr(), b, h, kv, hd, bs, nb, n_blocks,
-                   _paged.TILE, hd ** -0.5, _paged.stream_ptr(q))
+                   _paged.TILE, window, hd ** -0.5, _paged.stream_ptr(q))
     if rc:
-        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
-                           f"error {rc}")
-    _paged.count_launch(paged_decode_attention)
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    _paged.count_launch(wrapper)
     return out
 
 
+def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, block_tables: torch.Tensor,
+                           positions: torch.Tensor) -> torch.Tensor:
+    """Row b's new token attends to slots ``0..positions[b]`` of table
+    row b.  q [B, H, hd]; caches [n_blocks, bs, Kv, hd]; block_tables
+    [B, nb] int32; positions [B] int32 -> [B, H*hd].  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16 only)."""
+    return _decode(paged_decode_attention, q, k_cache, v_cache,
+                   block_tables, positions, 0)
+
+
+def paged_decode_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   positions: torch.Tensor, *,
+                                   window: int) -> torch.Tensor:
+    """:func:`paged_decode_attention` over a rolling cache (slot = pos %
+    W): row b attends to slots ``0..min(positions[b] + 1, W) - 1``."""
+    _check_window(window)
+    return _decode(paged_decode_attention_rolling, q, k_cache, v_cache,
+                   block_tables, positions, window)
+
+
 paged_decode_attention.launches = 0
+paged_decode_attention_rolling.launches = 0
 
 
 def paged_decode_attention_quant_plain(q, k8, ks, v8, vs, block_tables,
-                                       positions):
+                                       positions, *, rolling_window: int = 0):
     """q [B, H, hd]; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks,
     bs, Kv] bf16; block_tables [B, nb]; positions [B] -> [B, H*hd]."""
     g = lambda c: gather_paged_cache(c, block_tables)
-    return decode_attention_quant(q, g(k8), g(ks), g(v8), g(vs), positions)
+    return decode_attention_quant(q, g(k8), g(ks), g(v8), g(vs), positions,
+                                  rolling_window=rolling_window)
 
 
-def paged_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
-                                 ks: torch.Tensor, v8: torch.Tensor,
-                                 vs: torch.Tensor, block_tables: torch.Tensor,
-                                 positions: torch.Tensor) -> torch.Tensor:
-    """:func:`paged_decode_attention` over the int8 cache (k8/v8 int8
-    [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks, bs, Kv]).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 q, hd a multiple of 16)."""
+def _decode_quant(wrapper, q, k8, ks, v8, vs, block_tables, positions,
+                  window):
     _paged.check_quant(q, k8, ks, v8, vs, block_tables,
                        {"positions": positions})
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError(f"block_tables has {block_tables.shape[0]} rows "
                          f"for {q.shape[0]} queries")
     if q.device.type == "cpu":
-        return paged_decode_attention_quant_plain(q, k8, ks, v8, vs,
-                                                  block_tables, positions)
+        return paged_decode_attention_quant_plain(
+            q, k8, ks, v8, vs, block_tables, positions,
+            rolling_window=window)
     b, h, hd = q.shape
     n_blocks, bs, kv = k8.shape[:3]
     nb = block_tables.shape[1]
@@ -131,12 +154,38 @@ def paged_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
                          v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
                          positions.data_ptr(), scratch.data_ptr(),
                          out.data_ptr(), b, h, kv, hd, bs, nb, n_blocks,
-                         hd ** -0.5, _paged.stream_ptr(q))
+                         window, hd ** -0.5, _paged.stream_ptr(q))
     if rc:
-        raise RuntimeError(f"paged_decode_attention_quant launch failed: "
-                           f"CUDA error {rc}")
-    _paged.count_launch(paged_decode_attention_quant)
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    _paged.count_launch(wrapper)
     return out
 
 
+def paged_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                                 ks: torch.Tensor, v8: torch.Tensor,
+                                 vs: torch.Tensor, block_tables: torch.Tensor,
+                                 positions: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_decode_attention` over the int8 cache (k8/v8 int8
+    [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks, bs, Kv]).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16 q, hd a multiple of 16)."""
+    return _decode_quant(paged_decode_attention_quant, q, k8, ks, v8, vs,
+                         block_tables, positions, 0)
+
+
+def paged_decode_attention_quant_rolling(q: torch.Tensor, k8: torch.Tensor,
+                                         ks: torch.Tensor, v8: torch.Tensor,
+                                         vs: torch.Tensor,
+                                         block_tables: torch.Tensor,
+                                         positions: torch.Tensor, *,
+                                         window: int) -> torch.Tensor:
+    """:func:`paged_decode_attention_quant` over a rolling int8 cache:
+    row b attends to slots ``0..min(positions[b] + 1, W) - 1``."""
+    _check_window(window)
+    return _decode_quant(paged_decode_attention_quant_rolling, q, k8, ks, v8,
+                         vs, block_tables, positions, window)
+
+
 paged_decode_attention_quant.launches = 0
+paged_decode_attention_quant_rolling.launches = 0

@@ -10,8 +10,10 @@ version runs fp32 FMAs in 64 x 64 tiles with an fp32 online softmax,
 skipping whole tiles outside the causal (and window) band.
 
 Plain version: :func:`flash_attention_plain`, the reference's prefill
-attention ``repro.models.attention.chunked_attention`` (what its
-``prefill`` mode runs off the TPU) with its dtype casts.
+attention with its dtype casts: ``repro.models.attention.
+chunked_attention`` (what its ``prefill`` mode runs off the TPU), or for
+a sliding window ``local_attention`` (the windowed prefill, which keeps
+its scores and unnormalised probabilities in the input dtype).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, _paged
-from repro_torch.models.attention import chunked_attention
+from repro_torch.models.attention import chunked_attention, \
+    local_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 HEAD_DIMS = (16, 32, 64, 128)        # the kernel's compiled head widths
@@ -36,7 +39,16 @@ def _kernel():
 def flash_attention_plain(q, k, v, q_positions, *, window: int = 0,
                           kv_block: int = 512):
     """q [B, Sq, H, hd]; k, v [B, Skv, Kv, hd]; q_positions [Sq] ->
-    [B, Sq, H*hd]."""
+    [B, Sq, H*hd].  With a window, the reference's ``local_attention``
+    (query blocks of ``kv_block`` rows), which takes a prompt from
+    position 0: q_positions must be ``arange(Sq)`` and Skv == Sq."""
+    if window:
+        sq = q.shape[1]
+        if k.shape[1] != sq or not torch.equal(
+                q_positions.long(), torch.arange(sq, device=q.device)):
+            raise ValueError("windowed prefill attention takes a prompt "
+                             "from position 0 (q_positions = arange(S))")
+        return local_attention(q, k, v, window=window, q_block=kv_block)
     return chunked_attention(q, k, v, window=window, kv_block=kv_block,
                              q_positions=q_positions)
 
@@ -49,8 +61,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (window > 0) of the same batch row; GQA maps query head h to
     kv head ``h // (H // Kv)``.  q [B, Sq, H, hd]; k, v [B, Skv, Kv, hd];
     q_positions [Sq] int32 -> [B, Sq, H*hd].  CPU tensors take the plain
-    version, whose kv tile is ``kv_block`` (the kernel's tiles are 64 keys
-    wide; the tile changes only the order of fp32 sums); CUDA tensors
+    version, whose kv tile (query block with a window) is ``kv_block``
+    (the kernel's tiles are 64 keys wide; the tile changes only the order
+    of fp32 sums, and in bf16 where the windowed version rounds); CUDA
+    tensors
     launch the kernel (bf16, hd in ``HEAD_DIMS``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be [B, S, H, hd] and k, v one [B, S, Kv, "

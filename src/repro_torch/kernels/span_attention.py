@@ -12,14 +12,29 @@ CUDA kernels:
   for ``kv_quant`` models: exact int8 dots, q and the probabilities
   quantized on the fly (``csrc/paged_attention_quant.cuh``).
 
-Both are memory-bound: the least they must move is each row's K/V
-prefix once, plus q and the output.
+- ``csrc/paged_span_attention_rolling.cu`` replaces
+  ``repro/kernels/span_attention.py:703``
+  (``paged_span_attention_rolling``) for sliding-window models, whose
+  rolling cache keeps position p at slot p % W: two sources, the old cache
+  through the table and the span's own fresh K/V, under one softmax,
+  attended before the caller scatters the span.
+- ``csrc/paged_span_attention_rolling_quant.cu`` replaces
+  ``repro/kernels/span_attention.py:761``
+  (``paged_span_attention_rolling_quant``): the same over the int8
+  rolling cache, with the int8 kernel's math on the old cache and
+  full-precision dots on the fresh span.
+
+All four are memory-bound: the least they must move is each row's K/V
+prefix (or window) once, plus q, the fresh span and the output.
 
 Plain versions: :func:`paged_span_attention_plain`, the reference
 oracle's gather-then-attend (``repro.models.attention.
 paged_span_attention``) with its dtype casts, and
-:func:`paged_span_attention_quant_plain`, the reference engine's int8
-path off the TPU (``attention.paged_span_attention_quant_native``).
+:func:`paged_span_attention_quant_plain`,
+:func:`paged_span_attention_rolling_plain` and
+:func:`paged_span_attention_rolling_quant_plain`, the reference engine's
+paths off the TPU (the ``attention.*_native`` functions, which read
+through the table tile by tile).
 """
 from __future__ import annotations
 
@@ -31,7 +46,8 @@ import torch
 from repro_torch.kernels import _build, _paged
 from repro_torch.models.attention import (
     kv_tile, gather_paged_cache, packed_span_attention,
-    paged_span_attention_quant_native)
+    paged_span_attention_quant_native, paged_span_attention_rolling_native,
+    paged_span_attention_rolling_quant_native)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -70,8 +86,9 @@ def paged_span_attention(q: torch.Tensor, k_cache: torch.Tensor,
     the kernel (bf16 only)."""
     if window:
         raise NotImplementedError(
-            "sliding-window span attention is not ported yet "
-            "(ROADMAP.md queue 2: paged_span_attention_rolling)")
+            "windowed span attention over a full cache is not ported; "
+            "windowed models keep rolling caches "
+            "(paged_span_attention_rolling)")
     _paged.check(q, k_cache, v_cache, block_tables,
                  {"positions": positions, "seq_idx": seq_idx})
     if q.device.type == "cpu":
@@ -143,3 +160,154 @@ def paged_span_attention_quant(q: torch.Tensor, k8: torch.Tensor,
 
 
 paged_span_attention_quant.launches = 0
+
+
+@functools.cache
+def _rolling_kernel():
+    return _build.load("paged_span_attention_rolling",
+                       "paged_span_attention_rolling",
+                       [_P] * 10 + [_I] * 11 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _rolling_quant_kernel():
+    return _build.load("paged_span_attention_rolling_quant",
+                       "paged_span_attention_rolling_quant",
+                       [_P] * 12 + [_I] * 11 + [ctypes.c_float, _P])
+
+
+def _check_rolling(q, k_span, v_span, offsets, n_valid, window):
+    if window < 1:
+        raise ValueError(f"a rolling window must be >= 1, got {window}")
+    t, h, hd = q.shape
+    if k_span.shape != v_span.shape or k_span.dim() != 3 or \
+            k_span.shape[0] != t or k_span.shape[2] != hd:
+        raise ValueError(f"k_span/v_span must be [{t}, Kv, {hd}], got "
+                         f"{tuple(k_span.shape)}, {tuple(v_span.shape)}")
+    if k_span.dtype != q.dtype or v_span.dtype != q.dtype:
+        raise TypeError(f"the span's K/V must be {q.dtype}, got "
+                        f"{k_span.dtype}, {v_span.dtype}")
+    if offsets.shape != (t,) or offsets.dtype != torch.int32:
+        raise ValueError(f"offsets must be [{t}] int32, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype}")
+    if not 0 <= int(n_valid) <= t:
+        raise ValueError(f"n_valid must be in [0, {t}], got {n_valid}")
+    tensors = [q, k_span, v_span, offsets]
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("all inputs must be on one device")
+    if q.device.type == "cuda" and not (k_span.is_contiguous()
+                                        and v_span.is_contiguous()):
+        raise ValueError("the CUDA kernel needs contiguous inputs")
+
+
+def paged_span_attention_rolling_plain(q, k_cache, v_cache, k_span, v_span,
+                                       block_tables, positions, seq_idx,
+                                       offsets, n_valid, *, window: int,
+                                       kv_block: int = 512):
+    """q [T, H, hd]; caches [n_blocks, bs, Kv, hd]; k_span/v_span
+    [T, Kv, hd]; block_tables [B, nb]; positions/seq_idx/offsets [T];
+    n_valid an int -> [T, H*hd]."""
+    return paged_span_attention_rolling_native(
+        q, k_cache, v_cache, k_span, v_span, block_tables, positions,
+        seq_idx, offsets, n_valid, window=window, kv_block=kv_block)
+
+
+def paged_span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, k_span: torch.Tensor,
+                                 v_span: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 positions: torch.Tensor,
+                                 seq_idx: torch.Tensor, offsets: torch.Tensor,
+                                 n_valid: int, *,
+                                 window: int) -> torch.Tensor:
+    """Token t (row ``seq_idx[t]``, position ``positions[t]``, whose row
+    cache holds positions [0, ``offsets[t]``) at slots pos % W) attends
+    the old rolling cache through its table row (stored positions rebuilt
+    against the table's width nb * bs) and the span's own fresh K/V
+    (same row, causal, inside the window, index < ``n_valid``), all
+    within ``window``.  The caches are read only: the caller scatters the
+    span afterwards.  q [T, H, hd]; caches [n_blocks, bs, Kv, hd];
+    k_span/v_span [T, Kv, hd]; block_tables [B, nb] int32;
+    positions/seq_idx/offsets [T] int32 -> [T, H*hd].  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16 only)."""
+    _paged.check(q, k_cache, v_cache, block_tables,
+                 {"positions": positions, "seq_idx": seq_idx})
+    _check_rolling(q, k_span, v_span, offsets, n_valid, window)
+    if q.device.type == "cpu":
+        return paged_span_attention_rolling_plain(
+            q, k_cache, v_cache, k_span, v_span, block_tables, positions,
+            seq_idx, offsets, n_valid, window=window)
+    t, h, hd = q.shape
+    n_blocks, bs, kv = k_cache.shape[:3]
+    b, nb = block_tables.shape
+    out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
+    rc = _rolling_kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_span.data_ptr(), v_span.data_ptr(), block_tables.data_ptr(),
+        positions.data_ptr(), seq_idx.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), t, h, kv, hd, bs, b, nb, n_blocks, _paged.TILE,
+        window, int(n_valid), hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"paged_span_attention_rolling launch failed: "
+                           f"CUDA error {rc}")
+    _paged.count_launch(paged_span_attention_rolling)
+    return out
+
+
+paged_span_attention_rolling.launches = 0
+
+
+def paged_span_attention_rolling_quant_plain(q, k8, ks, v8, vs, k_span,
+                                             v_span, block_tables, positions,
+                                             seq_idx, offsets, n_valid, *,
+                                             window: int,
+                                             kv_block: int = 512):
+    """q [T, H, hd]; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks,
+    bs, Kv] bf16; the rest as :func:`paged_span_attention_rolling_plain`
+    -> [T, H*hd]."""
+    return paged_span_attention_rolling_quant_native(
+        q, k8, ks, v8, vs, k_span, v_span, block_tables, positions, seq_idx,
+        offsets, n_valid, window=window, kv_block=kv_block)
+
+
+def paged_span_attention_rolling_quant(
+        q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+        v8: torch.Tensor, vs: torch.Tensor, k_span: torch.Tensor,
+        v_span: torch.Tensor, block_tables: torch.Tensor,
+        positions: torch.Tensor, seq_idx: torch.Tensor,
+        offsets: torch.Tensor, n_valid: int, *, window: int,
+        kv_block: int = 512) -> torch.Tensor:
+    """:func:`paged_span_attention_rolling` over the int8 rolling cache
+    (k8/v8 int8 [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks,
+    bs, Kv]); the fresh span K/V stays bf16.  The old cache's
+    probabilities are quantized per tile of ``kv_block`` slots, clipped
+    and halved until it divides the table's ``nb * bs`` slots (the
+    reference engine's rule).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 q, hd a multiple of 16)."""
+    _paged.check_quant(q, k8, ks, v8, vs, block_tables,
+                       {"positions": positions, "seq_idx": seq_idx})
+    _check_rolling(q, k_span, v_span, offsets, n_valid, window)
+    if q.device.type == "cpu":
+        return paged_span_attention_rolling_quant_plain(
+            q, k8, ks, v8, vs, k_span, v_span, block_tables, positions,
+            seq_idx, offsets, n_valid, window=window, kv_block=kv_block)
+    t, h, hd = q.shape
+    n_blocks, bs, kv = k8.shape[:3]
+    b, nb = block_tables.shape
+    tile = kv_tile(kv_block, nb * bs)
+    out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
+    rc = _rolling_quant_kernel()(
+        q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+        vs.data_ptr(), k_span.data_ptr(), v_span.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), seq_idx.data_ptr(),
+        offsets.data_ptr(), out.data_ptr(), t, h, kv, hd, bs, b, nb,
+        n_blocks, tile, window, int(n_valid), hd ** -0.5,
+        _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"paged_span_attention_rolling_quant launch "
+                           f"failed: CUDA error {rc}")
+    _paged.count_launch(paged_span_attention_rolling_quant)
+    return out
+
+
+paged_span_attention_rolling_quant.launches = 0

@@ -4,7 +4,7 @@
 
 Splits a full-width model into two pipeline stages on one card (random
 weights from ``--seed``) and times the pieces an iteration is made of,
-at the shapes of ``chip_smoke.py``'s engine phase:
+at the shapes of ``chip_smoke.py``'s engine phase.  For the dense model:
 
 * the first stage's decode step (B = 4 rows, contexts of 300-600 tokens),
   chunk step (T = 256 packed tokens over 4 rows) and monolithic prefill
@@ -16,12 +16,20 @@ at the shapes of ``chip_smoke.py``'s engine phase:
 * the CPU sampler on those logits, with the serving defaults' params
   (temperature, top-k, top-p, penalties) and greedy.
 
+Then for mixtral-8x7b at its published widths, cut to the 16 of its 32
+layers that one card holds, as in ``chip_smoke.py``: the first stage's decode
+step (B = 4 rows, two of them past the W = 4096 window) and rolling chunk
+step (T = 256 over 4 rows, wrapped and not), and one MoE layer's FFN at
+T = 4 and T = 256 tokens.
+
 Prints one line per piece and, last, one JSON object with every number
 beside the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import subprocess
 import time
@@ -35,6 +43,7 @@ from repro_torch.core.engine import split_for_pp
 from repro_torch.core.sampler import ColumnWiseSampler
 from repro_torch.core.sampling_params import SamplingParams
 from repro_torch.models.registry import ModelOptions, build_model
+from repro_torch.models.stacked import tree_map
 
 BS = 16
 
@@ -88,13 +97,46 @@ def _piece(name, fn, reps, results, profile=True):
     print(f"{name}: {json.dumps(row)}", flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
-    dev = resolve_device(None)
+def profile_mixtral(seed: int, reps: int, dev, results):
+    """mixtral-8x7b (16 of 32 layers) over the paged rolling cache."""
+    from repro_torch.configs.mixtral_8x7b import ONE_CARD_LAYERS
+    from repro_torch.models.transformer import moe_block
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=ONE_CARD_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    first = split_for_pp(model, params, 2)[0]
+    nb = cfg.window // BS                         # a full rolling table
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    tables = i32(np.arange(4 * nb).reshape(4, nb))
+    cache = model.paged_cache(first.n_groups, 4 * nb + 1, BS, device=dev)
+    tok, pos = i32([1, 2, 3, 4]), i32([4700, 300, 4500, 100])
+    _piece(f"mixtral first stage decode step (B=4, {first.n_groups} layers)",
+           lambda: first.decode_fn(first.params, cache, tok, pos, tables),
+           reps, results)
+    starts = np.array([4500, 100, 4050, 3000])
+    span = i32(np.arange(256) % cfg.vocab_size)
+    span_pos = i32(np.concatenate([s + np.arange(64) for s in starts]))
+    span_seq = i32(np.repeat(np.arange(4), 64))
+    last_idx = i32([63, 127, 191, 255])
+    _piece(f"mixtral first stage rolling chunk step (T=256, "
+           f"{first.n_groups} layers)",
+           lambda: first.chunk_fn(first.params, cache, span, span_pos,
+                                  span_seq, last_idx, tables,
+                                  span_starts=i32(starts), n_valid=256),
+           reps, results)
+    ffn = tree_map(lambda w: w[0], first.params["blocks"]["l0"]["ffn"])
+    for t in (4, 256):
+        x = torch.randn(t, cfg.d_model, device=dev).to(torch.bfloat16)
+        _piece(f"mixtral one MoE layer (T={t})",
+               lambda: moe_block(ffn, x, cfg), reps, results)
+    del params, first, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_dense(args, dev, results):
+    """The dense model's pieces (the module docstring's first list)."""
     cfg = get_config(args.arch)
     model = build_model(cfg)
     params = model.init(args.seed, device=dev)
@@ -104,7 +146,6 @@ def main():
     tables = i32(np.arange(4 * 40).reshape(4, 40))
     caches = [model.paged_cache(s.n_groups, n_blocks, BS, device=dev)
               for s in (first, last)]
-    results = {}
 
     tok, pos = i32([1, 2, 3, 4]), i32([500, 400, 300, 600])
     _piece("first stage decode step (B=4)",
@@ -153,11 +194,25 @@ def main():
             sampler.sample(logits[-1], [sp] * 4, slot=0, seq_ids=[0, 1, 2, 3])
         results[name] = {"host_ms": (time.perf_counter() - t0) / args.reps * 1e3}
         print(f"{name}: {json.dumps(results[name])}", flush=True)
+    del params, first, last, caches, first_q, cache_q
+    gc.collect()
+    torch.cuda.empty_cache()
 
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    dev = resolve_device(None)
+    results = {}
+    profile_dense(args, dev, results)
+    profile_mixtral(args.seed, args.reps, dev, results)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"arch": cfg.name, "card": smi, "pieces": results}))
+    print(json.dumps({"arch": args.arch, "card": smi, "pieces": results}))
 
 
 if __name__ == "__main__":

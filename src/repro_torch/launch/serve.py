@@ -1,12 +1,16 @@
-"""Serving entry point: the port's SiPipe engine end to end on a dense model
-with a ShareGPT-shaped workload (offline batch: enqueue everything, then
-a blocking ``run()``).
+"""Serving entry point: the port's SiPipe engine end to end on a dense or
+MoE model with a ShareGPT-shaped workload (offline batch: enqueue
+everything, then a blocking ``run()``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
 
 ``--arch stablelm-1.6b`` serves the full-size configuration (random
-weights from ``--seed``); ``stablelm-1.6b-smoke`` the reduced one.  The
-engine runs on the card unless ``--device cpu`` is given.  Without
+weights from ``--seed``); ``stablelm-1.6b-smoke`` the reduced one.
+``--arch mixtral-8x7b-smoke`` serves the reduced MoE model with its
+sliding window (W = 32, rolling KV cache); ``mixtral-8x7b`` at its 32
+published layers needs ~93 GB of bf16 weights, more than one 80 GB card
+holds (``chip_smoke.py`` serves it cut to 16 layers).  The engine runs on
+the card unless ``--device cpu`` is given.  Without
 ``--chunk-tokens`` the default policy prefills whole prompts
 (monolithic); ``--chunk-tokens 256`` selects chunked prefill.
 """

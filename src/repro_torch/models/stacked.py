@@ -27,9 +27,13 @@ class Ctx:
     rope_sin: Optional[torch.Tensor] = None
     # chunk mode (packed ragged layout): batch row of each packed token [T]
     seq_idx: Optional[torch.Tensor] = None
+    # chunk mode, windowed models: per-row span starts [B] (tokens already
+    # in the rolling cache) and the unpadded token count (None = all T)
+    span_starts: Optional[torch.Tensor] = None
+    n_valid: Optional[int] = None
     # prefill mode: per-row real token counts [B] of a ragged
-    # (right-padded) batch; the reference's windowed models need them to
-    # keep pad-tail K/V out of a rolling cache (None = batch is unpadded)
+    # (right-padded) batch; windowed models need them to keep pad-tail
+    # K/V out of a rolling cache (None = batch is unpadded)
     seq_lens: Optional[torch.Tensor] = None
     # paged KV layout: per-row physical block ids [B, nb]; cache leaves are
     # block-major [n_blocks, block_size, ...] and attention reads and

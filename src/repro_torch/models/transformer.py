@@ -1,11 +1,13 @@
-"""The dense decoder block: self-attention over a paged KV cache + SwiGLU.
+"""Decoder blocks: self-attention over a paged KV cache + SwiGLU or a
+sparse MoE FFN.
 
-Ports ``repro.models.transformer`` for ``family == "dense"`` in the
-``prefill``, ``decode`` and ``chunk`` modes with the paged layout, over a
-bf16 (or, for parity runs, fp32) cache or the int8 cache (``kv_quant``).
-Attention runs through the hand-written kernels (``repro_torch.kernels``);
-the projections and the MLP are plain matrix products, as the reference
-leaves them to XLA.
+Ports ``repro.models.transformer`` for the ``dense`` and ``moe`` families
+in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout,
+over a bf16 (or, for parity runs, fp32) cache or the int8 cache
+(``kv_quant``), with full attention or a sliding window over a rolling
+cache (slot = position % W).  Attention runs through the hand-written
+kernels (``repro_torch.kernels``); the projections, the MLP and the
+experts are plain matrix products, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -16,12 +18,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_quant)
+    paged_decode_attention, paged_decode_attention_quant,
+    paged_decode_attention_quant_rolling, paged_decode_attention_rolling)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.span_attention import (paged_span_attention,
-                                                paged_span_attention_quant)
-from repro_torch.models.attention import quantize_kv
+from repro_torch.kernels.span_attention import (
+    paged_span_attention, paged_span_attention_quant,
+    paged_span_attention_rolling, paged_span_attention_rolling_quant)
+from repro_torch.models.attention import (fill_rolling_cache,
+                                          fill_rolling_cache_ragged,
+                                          quantize_kv)
 from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
+from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.stacked import Ctx, Stack
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue 1)"
@@ -62,24 +69,30 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
                     cfg: ArchConfig) -> torch.Tensor:
     """One attention block.  Cache leaves: ``{"k", "v"}`` in the model's
     dtype, or with ``kv_quant`` ``{"k", "v"}`` int8 and their bf16 scales
-    ``{"ks", "vs"}`` (one per K/V vector).
+    ``{"ks", "vs"}`` (one per K/V vector).  With ``cfg.window`` W the
+    cache is rolling: position p lives in logical slot p % W.
 
-    prefill: x [B, S, d], positions [S]; causal attention over the
-    prompt's own full-precision K/V (the flash kernel); ``cache`` leaves
-    [B, S, Kv, hd] ([B, S, Kv] for scales) receive the prompt's K/V, int8
-    with ``kv_quant``.
+    prefill: x [B, S, d], positions [S]; causal (windowed) attention over
+    the prompt's own full-precision K/V (the flash kernel); ``cache``
+    leaves [B, S or W, Kv, hd] ([B, S or W, Kv] for scales) receive the
+    prompt's K/V (a rolling cache by ``ctx.seq_lens``), int8 with
+    ``kv_quant``.
     decode: x [B, d], positions [B], row b's table is block_tables[b].
     chunk: x [T, d] is the packed span (bucket padding duplicates the last
-    valid token: same token, position and row, so its duplicate scatter
-    writes identical values), positions/seq_idx [T].
+    valid token: same token, position and row; only the valid tokens are
+    written), positions/seq_idx [T]; ``ctx.n_valid`` the unpadded count
+    (None: no padding), and a windowed model also takes
+    ``ctx.span_starts`` [B].
     In decode and chunk modes the paged cache ([n_blocks, bs, Kv, hd]
-    leaves) is written in place, then attended through the table."""
+    leaves) is written in place and attended through the table: written
+    first, except for a rolling chunk, which attends the old cache and
+    its own K/V first (its writes would overwrite window entries its
+    earlier tokens still need)."""
     if ctx.mode not in ("prefill", "decode", "chunk"):
         raise ValueError(f"unknown mode {ctx.mode!r}")
-    if cfg.window:
-        raise NotImplementedError(f"sliding-window attention {_NOT_PORTED}")
     if ctx.mode != "prefill" and ctx.block_tables is None:
         raise NotImplementedError(f"the contiguous KV layout {_NOT_PORTED}")
+    w = cfg.window
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)                        # [..., H, hd]
     if ctx.mode == "prefill":
@@ -87,7 +100,17 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         sin = ctx.rope_sin[None, :, None, :]
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         # attend the prompt's full-precision K/V; store the cache's form
-        o = flash_attention(q, k, v, ctx.positions, kv_block=ctx.kv_block)
+        o = flash_attention(q, k, v, ctx.positions, window=w,
+                            kv_block=min(ctx.kv_block, w) if w
+                            else ctx.kv_block)
+        if w:
+            # a ragged batch fills each row by its own length, so pad-tail
+            # K/V never reaches a rolling slot
+            if ctx.seq_lens is not None:
+                k = fill_rolling_cache_ragged(k, w, ctx.seq_lens)
+                v = fill_rolling_cache_ragged(v, w, ctx.seq_lens)
+            else:
+                k, v = fill_rolling_cache(k, w), fill_rolling_cache(v, w)
         for kk, val in _cache_entries(k, v, ctx.kv_quant).items():
             cache[kk].copy_(val)
         return x + o @ p["wo"]
@@ -96,26 +119,55 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
     tables = ctx.block_tables
     rows = (ctx.seq_idx if ctx.mode == "chunk"
             else torch.arange(x.shape[0], device=x.device)).long()
-    pos = ctx.positions.long()
+    slot = ctx.positions.long() % w if w else ctx.positions.long()
     bs = cache["k"].shape[1]
     # dirty-slot write-back: only the new tokens' (block, offset) slots
-    blk = torch.clamp(pos // bs, max=tables.shape[1] - 1)
+    blk = torch.clamp(slot // bs, max=tables.shape[1] - 1)
     phys = tables[rows, blk].long()
-    off = pos % bs
+    off = slot % bs
     quant = "ks" in cache
-    for kk, val in _cache_entries(k, v, quant).items():
+    entries = _cache_entries(k, v, quant)
+    n = x.shape[0]
+    if ctx.mode == "chunk" and ctx.n_valid is not None and ctx.n_valid < n:
+        # bucket padding repeats the last valid token's slot.  After an
+        # MoE layer the repeats can hold other values (capacity drops
+        # them first), so only the valid tokens are written: the slot
+        # holds the real token's K/V, and no scatter index repeats
+        phys, off = phys[:ctx.n_valid], off[:ctx.n_valid]
+        entries = {kk: val[:ctx.n_valid] for kk, val in entries.items()}
+    if w and ctx.mode == "chunk":
+        if ctx.span_starts is None:
+            raise ValueError("a windowed chunk step needs span_starts")
+        offs = ctx.span_starts[ctx.seq_idx.long()]
+        n_valid = x.shape[0] if ctx.n_valid is None else ctx.n_valid
+        span = (k, v, tables, ctx.positions, ctx.seq_idx, offs, n_valid)
+        o = (paged_span_attention_rolling_quant(
+                q, cache["k"], cache["ks"], cache["v"], cache["vs"], *span,
+                window=w) if quant else
+             paged_span_attention_rolling(q, cache["k"], cache["v"], *span,
+                                          window=w))
+        for kk, val in entries.items():
+            cache[kk][phys, off] = val
+        return x + o @ p["wo"]
+    for kk, val in entries.items():
         cache[kk][phys, off] = val
     if quant:
         args = (q, cache["k"], cache["ks"], cache["v"], cache["vs"], tables,
                 ctx.positions)
-        o = (paged_decode_attention_quant(*args) if ctx.mode == "decode"
-             else paged_span_attention_quant(*args, ctx.seq_idx))
-    elif ctx.mode == "decode":
-        o = paged_decode_attention(q, cache["k"], cache["v"], tables,
-                                   ctx.positions)
+        if ctx.mode == "chunk":
+            o = paged_span_attention_quant(*args, ctx.seq_idx)
+        elif w:
+            o = paged_decode_attention_quant_rolling(*args, window=w)
+        else:
+            o = paged_decode_attention_quant(*args)
     else:
-        o = paged_span_attention(q, cache["k"], cache["v"], tables,
-                                 ctx.positions, ctx.seq_idx)
+        args = (q, cache["k"], cache["v"], tables, ctx.positions)
+        if ctx.mode == "chunk":
+            o = paged_span_attention(*args, ctx.seq_idx)
+        elif w:
+            o = paged_decode_attention_rolling(*args, window=w)
+        else:
+            o = paged_decode_attention(*args)
     return x + o @ p["wo"]
 
 
@@ -134,15 +186,39 @@ def mlp_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + a @ p["w2"]
 
 
-def dense_layer_stack(cfg: ArchConfig, n: int) -> Stack:
-    """n groups of one dense layer each (the reference's ``moe_every=0``
-    layout, group key ``l0``)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE layers {_NOT_PORTED}")
-    specs = {"l0": {"attn": attn_specs(cfg), "ffn": mlp_specs(cfg)}}
+def moe_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Residual sparse-MoE FFN.  x [B, S, d] (prefill) or [N, d] (decode
+    rows, packed chunk tokens): every row is routed, padding included."""
+    if "shared_w1" in p:
+        raise NotImplementedError(f"a shared expert {_NOT_PORTED}")
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    squeeze = h.dim() == 2
+    y = moe_ffn(h[:, None, :] if squeeze else h, p["moe"], cfg.moe)
+    return x + (y[:, 0, :] if squeeze else y)
+
+
+def dense_layer_stack(cfg: ArchConfig, n: int, *, moe_every: int = 0) -> Stack:
+    """n groups; each group is ``moe_every`` layers whose last one is MoE
+    (``moe_every=0``: one layer per group, MoE iff the config has experts),
+    keyed ``l0, l1, ...``, as in the reference."""
+    per = max(moe_every, 1)
+    if cfg.moe is not None and cfg.moe.shared:
+        raise NotImplementedError(f"a shared expert {_NOT_PORTED}")
+    kinds = tuple("moe" if cfg.moe is not None and i == per - 1 else "mlp"
+                  for i in range(per))
+    specs = {}
+    for i, kind in enumerate(kinds):
+        ffn = ({"ln": ParamSpec((cfg.d_model,), "ones"),
+                "moe": moe_specs(cfg.d_model, cfg.moe)} if kind == "moe"
+               else mlp_specs(cfg))
+        specs[f"l{i}"] = {"attn": attn_specs(cfg), "ffn": ffn}
 
     def apply(gp, x, ctx: Ctx, cache_g):
-        x = self_attn_block(gp["l0"]["attn"], x, ctx, cache_g["l0"], cfg)
-        return mlp_block(gp["l0"]["ffn"], x, cfg)
+        for i, kind in enumerate(kinds):
+            lp = gp[f"l{i}"]
+            x = self_attn_block(lp["attn"], x, ctx, cache_g[f"l{i}"], cfg)
+            x = (moe_block(lp["ffn"], x, cfg) if kind == "moe"
+                 else mlp_block(lp["ffn"], x, cfg))
+        return x
 
     return Stack(n, specs, apply)

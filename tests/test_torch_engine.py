@@ -276,14 +276,25 @@ def test_unported_configurations_raise(models):
     with pytest.raises(ValueError, match="kv_layout"):
         engine.SiPipeEngine(model, params, engine.EngineConfig(
             kv_layout="virtual", prefill_chunk_tokens=8))
-    # windowed (mixtral-style) and MoE models wait for the rolling
-    # kernels and the MoE family (ROADMAP queue 1 item 8)
-    cfg = get_config(ARCH)
-    windowed = build_model(dataclasses.replace(cfg, window=32))
-    with pytest.raises(NotImplementedError, match="window"):
+    # windowed and MoE models run (tests/test_torch_moe.py); what still
+    # raises: a window that is not a block multiple under the default
+    # layout (the reference falls back to contiguous rows there), the
+    # hybrid family, and a shared expert, fused or not
+    windowed = build_model(dataclasses.replace(get_config(ARCH), window=20))
+    with pytest.raises(NotImplementedError, match="contiguous"):
         engine.SiPipeEngine(windowed, params, engine.EngineConfig())
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(dataclasses.replace(cfg, family="moe"))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        engine.SiPipeEngine(dataclasses.replace(
+            model, cfg=dataclasses.replace(model.cfg, family="hybrid")),
+            params, engine.EngineConfig())
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build_model(dataclasses.replace(get_config(ARCH), family="hybrid"))
+    moe = get_config("mixtral-8x7b-smoke")
+    with pytest.raises(NotImplementedError, match="shared expert"):
+        build_model(dataclasses.replace(
+            moe, moe=dataclasses.replace(moe.moe, shared=True)))
+    with pytest.raises(NotImplementedError, match="fuse_shared_expert"):
+        build_model(moe, ModelOptions(fuse_shared_expert=True))
 
 
 def test_entry_points_default_to_cuda_and_refuse_the_cpu_silently(
@@ -298,7 +309,11 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu_silently(
 
 KERNELS = (ksa.paged_span_attention, kda.paged_decode_attention,
            kfa.flash_attention, ksa.paged_span_attention_quant,
-           kda.paged_decode_attention_quant)
+           kda.paged_decode_attention_quant,
+           ksa.paged_span_attention_rolling,
+           ksa.paged_span_attention_rolling_quant,
+           kda.paged_decode_attention_rolling,
+           kda.paged_decode_attention_quant_rolling)
 
 
 def test_serve_cpu_run_counts_no_kernel_launches():
@@ -323,8 +338,9 @@ def test_serve_cpu_default_is_monolithic_and_counts_no_launches():
 
 def test_port_runs_without_jax_or_the_reference():
     """``import repro_torch`` and CPU engine runs (chunked, monolithic,
-    and monolithic then chunked over the int8 cache) load neither
-    ``jax`` nor any module of ``repro``."""
+    and monolithic then chunked over the int8 cache; mixtral-8x7b-smoke,
+    windowed MoE, chunked and monolithic) load neither ``jax`` nor any
+    module of ``repro``."""
     code = (
         "import sys\n"
         "from repro_torch.configs import get_config\n"
@@ -348,6 +364,11 @@ def test_port_runs_without_jax_or_the_reference():
         f"m = serve.run('{ARCH}', requests=2, max_new_tokens=3,"
         " device='cpu', verbose=False)\n"
         "assert m['finished'] == 2 and m['policy'] == 'monolithic'\n"
+        "for chunk in (8, 0):\n"
+        "    m = serve.run('mixtral-8x7b-smoke', requests=3,"
+        " max_new_tokens=3, max_seq_len=128, chunk_tokens=chunk,"
+        " device='cpu', verbose=False)\n"
+        "    assert m['finished'] == 3, m['finished']\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -186,16 +186,20 @@ def test_wrappers_reject_bad_inputs(wrapper, make, what, spoil, exc):
 
 
 def test_wrappers_reject_windows_and_count_no_cpu_launches():
+    """A window over a full cache is not a path (windowed models keep
+    rolling caches, with wrappers of their own), and a rolling window
+    must be positive; on the CPU no wrapper counts a launch."""
     with pytest.raises(NotImplementedError):
         ksa.paged_span_attention(*_span_args(), window=8)
-    with pytest.raises(NotImplementedError):
-        kda.paged_decode_attention(*_decode_args(), rolling_window=8)
-    before = (ksa.paged_span_attention.launches,
-              kda.paged_decode_attention.launches)
+    with pytest.raises(ValueError):
+        kda.paged_decode_attention_rolling(*_decode_args(), window=0)
+    wrappers = (ksa.paged_span_attention, kda.paged_decode_attention,
+                kda.paged_decode_attention_rolling)
+    before = [w.launches for w in wrappers]
     ksa.paged_span_attention(*_span_args())
     kda.paged_decode_attention(*_decode_args())
-    assert (ksa.paged_span_attention.launches,
-            kda.paged_decode_attention.launches) == before
+    kda.paged_decode_attention_rolling(*_decode_args(), window=8)
+    assert [w.launches for w in wrappers] == before
 
 
 # ---------------------------------------------------------------------------

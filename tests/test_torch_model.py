@@ -14,6 +14,8 @@ Greedy tokens must agree wherever the reference's top-2 logit gap exceeds
 twice the tolerance.  int8 caches are compared dequantized, within the
 tolerance plus one quantization step (``_assert_cache_close``), and the
 logits of steps that attend one within ``LOGIT_TOL_INT8``."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,6 +126,28 @@ def test_port_init_follows_the_spec_shapes(models):
             assert tuple(a.shape) == b and a.dtype == torch.bfloat16
     walk(own, ref_shapes)
     assert bool((own["stacks"]["blocks"]["l0"]["attn"]["ln"] == 1).all())
+
+
+@pytest.mark.parametrize("limit", [40, 5])
+def test_init_draws_a_leaf_above_the_limit_slice_by_slice(monkeypatch, limit):
+    """A leaf of more than ``_DRAW_LIMIT`` elements is drawn one leading
+    slice at a time (limit 5: slices of slices), each from the generator's
+    next state at the whole leaf's fan-in; a leaf within the limit is one
+    draw.  Exact: the scale 1/sqrt(4) is a power of two."""
+    from repro_torch.models import common
+    shape = (3, 4, 8)
+    gen = lambda: torch.Generator().manual_seed(0)
+    draw = lambda: common.init_tensor(shape, "normal", gen(), device="cpu",
+                                      dtype=torch.float32)
+    g = gen()
+    torch.testing.assert_close(draw(), torch.randn(shape, generator=g) / 2,
+                               rtol=0, atol=0)
+    monkeypatch.setattr(common, "_DRAW_LIMIT", limit)
+    g = gen()
+    piece = (4, 8) if limit >= 32 else (8,)
+    want = torch.cat([torch.randn(piece, generator=g).reshape(-1)
+                      for _ in range(96 // math.prod(piece))]) / 2
+    torch.testing.assert_close(draw(), want.reshape(shape), rtol=0, atol=0)
 
 
 def test_model_defaults_to_cuda_and_refuses_the_cpu_silently(
@@ -367,7 +391,9 @@ def test_bridge_serves_the_int8_cache_model(models):
 
 def test_unported_paths_raise(models):
     """What stays unported raises: the reference's other model options,
-    the MoE family, windowed attention and the contiguous cache layout."""
+    families other than dense and moe, a shared expert, and the
+    contiguous cache layout.  (The MoE family and windowed attention run:
+    tests/test_torch_moe.py.)"""
     _, _, model, params = models
     cfg = get_config(ARCH)
     for opt in ("triangular", "fuse_shared_expert", "seq_shard"):
@@ -376,13 +402,17 @@ def test_unported_paths_raise(models):
     with pytest.raises(NotImplementedError, match="remat"):
         build_model(cfg, ModelOptions(remat=False))
     with pytest.raises(NotImplementedError):
+        build_model(cfg.__class__(**{**cfg.__dict__, "family": "ssm"}))
+    with pytest.raises(ValueError, match="MoEConfig"):
         build_model(cfg.__class__(**{**cfg.__dict__, "family": "moe"}))
-    windowed = build_model(cfg.__class__(**{**cfg.__dict__, "window": 8}))
-    with pytest.raises(NotImplementedError, match="window"):
-        windowed.prefill(params, {"tokens": torch.zeros((1, 4),
-                                                        dtype=torch.int32)})
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32))
     cache = model.paged_cache(cfg.num_layers, N_BLOCKS + 1, BS, device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous"):
         model.decode(params, cache, {"token": i32([5]), "positions": i32([3]),
                                      "block_tables": None})
+    # a windowed model's chunk step needs its rows' span starts
+    windowed = build_model(cfg.__class__(**{**cfg.__dict__, "window": 16}))
+    stage = split_for_pp(windowed, params, 1)[0]
+    with pytest.raises(ValueError, match="span_starts"):
+        stage.chunk_fn(stage.params, cache, i32([5, 6]), i32([0, 1]),
+                       i32([0, 0]), i32([1]), i32(_tables()[:1]))
