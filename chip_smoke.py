@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,reference]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -47,7 +47,23 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    every request must finish, its kernels must have launched, and a
    2-request run (one prompt over W, one request per microbatch) must
    give SiPipe's greedy streams equal to NaivePPEngine's.
-6. reference — smoke-size models' logits on the card must agree with the
+6. contiguous — the contiguous KV layout (one cache row per sequence):
+   first its kernels, over [R, S, Kv, hd] rows read out of order, checked
+   and timed as in 2 and 3 (rows 9-12 of PERF.md's kernel table and the
+   contiguous modes of both decode kernels, at stablelm's shapes over
+   rows of S = 640 and at mixtral's over rolling rows of W = 4096 and
+   64); then, right after the engine phase and with its weights and
+   prompts, stablelm-1.6b over contiguous rows on its four paths, and,
+   right after the mixtral phase, mixtral-8x7b over rolling rows of W
+   slots, chunked and monolithic in bf16 and chunked in int8.  On each
+   path every request must finish, SiPipe's greedy schedules and streams
+   must equal NaivePPEngine's, the contiguous kernels must launch and no
+   paged kernel may; the bf16 greedy streams must equal the paged paths'
+   from the same run (the kernels share their bodies), and the int8 ones
+   are printed beside them with the largest logit difference (the int8
+   span's p-tile is S's over rows and the table's when paged, so there the
+   two layouts compute different functions).
+7. reference — smoke-size models' logits on the card must agree with the
    same models on the CPU: chunk steps then a decode step, and a prefill
    then a decode step, with a bf16 and with an int8 cache, for
    stablelm-1.6b-smoke and for mixtral-8x7b-smoke (its W = 32 rolling
@@ -56,8 +72,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  ``--phases`` runs a
-subset (engine needs kernels, mixtral needs rolling) and prints no
-result line.
+subset (engine needs kernels, mixtral needs rolling, contiguous needs
+both; its engine runs follow the engine and mixtral phases when they
+run) and prints no result line.
 
 The int8 monolithic and chunked streams are compared, not required to
 be equal: monolithic prefill attends full-precision K/V and chunks the
@@ -150,7 +167,7 @@ def _bound(case, h, hd, quant=False):
     kv, n = case["k"].shape[2], case["q"].shape[0]
     per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
     kv_bytes = int(case["ctx"].sum()) * kv * per_slot
-    io_bytes = 2 * n * h * hd * 2 + 4 * (case["tables"].numel() + 2 * n)
+    io_bytes = 2 * n * h * hd * 2 + 4 * (_table_ints(case) + 2 * n)
     ops = 4 * h * hd * int((case["positions"].long() + 1).sum())
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_S
     t_ops = ops / (INT8_OP_S if quant else BF16_FLOP_S)
@@ -166,15 +183,17 @@ def _flash_bound(b, s, h, kv, hd, causal_pairs):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _sdpa_args(case, h, hd, decode: bool):
-    """Padded [B, H, C, hd] queries, the gathered [B, Kv, S, hd] view and
-    a boolean mask, for the library yardstick."""
+def _sdpa_args(case, h, hd, decode: bool, views=None):
+    """Padded [B, H, C, hd] queries, the gathered [B, Kv, S, hd] view (or
+    ``views``, each batch row's [B, S, Kv, hd] K and V) and a boolean mask,
+    for the library yardstick."""
     import torch
     from repro_torch.models.attention import gather_paged_cache
-    k = gather_paged_cache(case["k"], case["tables"]).transpose(1, 2)
-    v = gather_paged_cache(case["v"], case["tables"]).transpose(1, 2)
+    if views is None:
+        views = [gather_paged_cache(case[n], case["tables"]) for n in "kv"]
+    k, v = (x.transpose(1, 2) for x in views)
     b, s = k.shape[0], k.shape[2]
-    rows = case["rows"].long().cpu().numpy()
+    rows = case.get("batch_rows", case["rows"]).long().cpu().numpy()
     pos = case["positions"].long()
     counts = np.bincount(rows, minlength=b)
     c = 1 if decode else int(counts.max())
@@ -224,6 +243,19 @@ def _kernel_ms(kernel, fn, reps=50):
     ms = _time_ms(fn, reps=reps)
     kernel.launches = launches
     return ms
+
+
+def _entry(name, src, replaces, err, ms, plain_ms, bound, lib_ms, card):
+    """Print a kernel's times beside its bound; its kernels-line entry
+    (``launches`` filled in by the engine runs)."""
+    bound_ms, bound_by = bound
+    lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib} bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
+          flush=True)
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
 def _quant(case):
@@ -280,14 +312,8 @@ def phase_kernels(dev, gen, card):
             q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4, enable_gqa=True), reps=20)
-            bound_ms, bound_by = _bound(case, h, hd)
-            print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"({bound_by}) on {card}", flush=True)
-            entry = dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
+            entry = _entry(name, src, replaces, err, ms, plain_ms,
+                           _bound(case, h, hd), lib_ms, card)
         results.append((kernel, entry))
 
     # the kernels of monolithic prefill and of the int8 cache draw their
@@ -318,14 +344,10 @@ def phase_kernels(dev, gen, card):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), reps=20)
-        bound_ms, bound_by = _flash_bound(b, s, h, kv, hd, s * (s + 1) // 2)
-        print(f"kernel flash_attention: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
-              f"({bound_by}) on {card}", flush=True)
-        entry = dict(name="flash_attention", route="cuda", source=flash_src,
-                     replaces="src/repro/kernels/flash_attention.py:80",
-                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        entry = _entry("flash_attention", flash_src,
+                       "src/repro/kernels/flash_attention.py:80", err, ms,
+                       plain_ms, _flash_bound(b, s, h, kv, hd,
+                                              s * (s + 1) // 2), lib_ms, card)
     results.append((kfa.flash_attention, entry))
 
     # the int8 kernels: no single PyTorch call computes them (library_ms
@@ -371,14 +393,8 @@ def phase_kernels(dev, gen, card):
                     continue
                 plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3,
                                     warmup=1)
-                bound_ms, bound_by = _bound(case, h, hd, quant=True)
-                print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"library_ms=null bound_ms={bound_ms:.5f} ({bound_by})"
-                      f" on {card}", flush=True)
-                entry = dict(name=name, route="cuda", source=src,
-                             replaces=replaces, launches=0, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None)
+                entry = _entry(name, src, replaces, err, ms, plain_ms,
+                               _bound(case, h, hd, quant=True), None, card)
         results.append((kernel, entry))
     return results
 
@@ -448,10 +464,17 @@ def _roofline(n_bytes, bf16_ops, int8_ops=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _table_ints(case) -> int:
+    """int32 entries of a case's block tables (none over contiguous rows,
+    whose row index per token is one of the index vectors)."""
+    return case["tables"].numel() if "tables" in case else 0
+
+
 def _rolling_bound(case, h, hd, quant=False):
     """Least time of a rolling span step: the old-cache slots any token of
     a row sees, read once per row (int8 values and bf16 scales for the
-    int8 cache), the valid fresh span K/V, q and the output (bytes); 4*H*hd
+    int8 cache), the valid fresh span K/V, q, the output and the index
+    vectors (the block tables, where there are any) (bytes); 4*H*hd
     operations per visible (token, slot) pair, int8 for the int8 cache's
     old slots and bf16 otherwise."""
     old, span = _rolling_visible(case)
@@ -461,24 +484,26 @@ def _rolling_bound(case, h, hd, quant=False):
     old_slots = sum(int(old[seq == r].any(0).sum()) for r in np.unique(seq))
     per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
     n_bytes = (old_slots * kv * per_slot + case["n_valid"] * kv * hd * 2 * 2
-               + 2 * t * h * hd * 2 + 4 * (case["tables"].numel() + 3 * t))
+               + 2 * t * h * hd * 2 + 4 * (_table_ints(case) + 3 * t))
     old_ops, span_ops = 4 * h * hd * int(old.sum()), 4 * h * hd * int(span.sum())
     if quant:
         return _roofline(n_bytes, span_ops, old_ops)
     return _roofline(n_bytes, old_ops + span_ops)
 
 
-def _rolling_sdpa_args(case, h, hd):
+def _rolling_sdpa_args(case, h, hd, views=None):
     """The library yardstick of a rolling span step: per row, its padded
-    queries [C] against its gathered view plus the whole span's fresh K/V,
-    under a boolean mask of what each token sees."""
+    queries [C] against its gathered view (or ``views``, each batch row's
+    [B, S, Kv, hd] K and V) plus the whole span's fresh K/V, under a
+    boolean mask of what each token sees."""
     import torch
     from repro_torch.models.attention import gather_paged_cache
     old, span = _rolling_visible(case)
     seq = case["np"]["seq"]
     n_rows = int(seq.max()) + 1
-    kg = gather_paged_cache(case["k"], case["tables"])   # [B, S, Kv, hd]
-    vg = gather_paged_cache(case["v"], case["tables"])
+    if views is None:
+        views = [gather_paged_cache(case[n], case["tables"]) for n in "kv"]
+    kg, vg = views                                       # [B, S, Kv, hd]
     keys = torch.cat([kg, case["k_span"][None].expand(n_rows, -1, -1, -1)], 1)
     vals = torch.cat([vg, case["v_span"][None].expand(n_rows, -1, -1, -1)], 1)
     c = int(np.bincount(seq).max())
@@ -554,15 +579,8 @@ def phase_rolling_kernels(dev, card):
                 lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                     *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True), reps=20)
                 del sdpa
-            bound_ms, bound_by = _rolling_bound(case, h, hd, quant)
-            print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
-                  f" bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
-                  flush=True)
-            entry = dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
+            entry = _entry(name, src, replaces, err, ms, plain_ms,
+                           _rolling_bound(case, h, hd, quant), lib_ms, card)
         results.append((kernel, entry))
 
     for name, kernel, plain, quant, src, replaces in (
@@ -602,8 +620,8 @@ def phase_rolling_kernels(dev, card):
             n_bytes = (int(vis.sum()) * kv * per_slot + 2 * 8 * h * hd * 2
                        + 4 * (case["tables"].numel() + 8))
             ops = 4 * h * hd * int(vis.sum())
-            bound_ms, bound_by = (_roofline(n_bytes, 0, ops) if quant
-                                  else _roofline(n_bytes, ops))
+            bound = (_roofline(n_bytes, 0, ops) if quant
+                     else _roofline(n_bytes, ops))
             lib_ms = None
             if not quant:
                 kg = gather_paged_cache(case["k"], case["tables"]).transpose(1, 2)
@@ -615,14 +633,8 @@ def phase_rolling_kernels(dev, card):
                 lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                     q4, kg, vg, attn_mask=m4, enable_gqa=True), reps=20)
                 del kg, vg
-            print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
-                  f" bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
-                  flush=True)
-            entry = dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
+            entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                           lib_ms, card)
         results.append((kernel, entry))
 
     # windowed flash: B = 2, S = 4500 at W = 4096 (the main shape), then
@@ -652,42 +664,294 @@ def phase_rolling_kernels(dev, card):
             qt, kt, vt, attn_mask=band, enable_gqa=True), reps=20)
         pairs = int(np.minimum(np.arange(s) + 1, window).sum())
         n_bytes = 2 * b * s * (2 * h + 2 * kv) * hd + 4 * s
-        bound_ms, bound_by = _roofline(n_bytes, 4 * hd * h * b * pairs)
-        print(f"kernel flash_attention_windowed: ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by}) on {card}", flush=True)
-        entry = dict(name="flash_attention_windowed", route="cuda",
-                     source="src/repro_torch/csrc/flash_attention.cu",
-                     replaces="src/repro/kernels/flash_attention.py:80 "
-                              "(window band)",
-                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        entry = _entry("flash_attention_windowed",
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:80 (window band)",
+                       err, ms, plain_ms,
+                       _roofline(n_bytes, 4 * hd * h * b * pairs), lib_ms,
+                       card)
     results.append((kfa.flash_attention, entry))
     return results
 
 
-def _engine(engine_cls, params, model, chunk, max_seq_len=640, max_batch=4):
-    """pp = 2, paged KV; ``chunk`` tokens per iteration under the chunked
-    policy, or None: the default policy, monolithic prefill."""
+ROWS = 8        # cache rows of the kernel checks' contiguous caches
+
+
+def _row_case(gen, positions, batch_rows, cache_rows, n_slots, h, kv, hd,
+              dev):
+    """The contiguous layout's inputs: bf16 q [N, H, hd]; [ROWS, S, Kv,
+    hd] caches whose every slot holds random values; token (or decode
+    row) i of batch row batch_rows[i] reads cache row
+    cache_rows[batch_rows[i]] (the rows are out of order)."""
+    import torch
+    ctx = np.zeros(len(cache_rows), np.int64)
+    for r, p in zip(batch_rows, positions):
+        ctx[r] = max(ctx[r], min(p + 1, n_slots))
+
+    def rand(*shape):
+        return torch.tensor(gen.standard_normal(shape, np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    t = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    rows = np.asarray(cache_rows)[np.asarray(batch_rows)]
+    return dict(q=rand(len(positions), h, hd), k=rand(ROWS, n_slots, kv, hd),
+                v=rand(ROWS, n_slots, kv, hd), positions=t(positions),
+                rows=t(rows), batch_rows=t(batch_rows), ctx=ctx,
+                cache_rows=t(cache_rows))
+
+
+def _row_views(case):
+    """Each batch row's [B, S, Kv, hd] K and V (the library yardstick's
+    inputs)."""
+    r = case["cache_rows"].long()
+    return case["k"][r], case["v"][r]
+
+
+def _row_rolling_case(gen, spans, window, cache_rows, h, kv, hd, dev, pad=0):
+    """A packed span over rolling rows [ROWS, W, Kv, hd]: batch row b (cache
+    row cache_rows[b]) holds positions [0, off) with ``spans[b] = (off,
+    c)`` and the span brings off..off+c-1; ``pad`` bucket-padding tokens
+    repeat the last one (n_valid < T).  Decode rows are spans of one token
+    (off = position).  Every slot holds random values."""
+    import torch
+    seq = np.concatenate([np.full(c, r) for r, (_, c) in enumerate(spans)])
+    pos = np.concatenate([o + np.arange(c) for o, c in spans])
+    offs = np.array([spans[r][0] for r in seq])
+    n_valid = len(seq)
+    seq, pos, offs = (np.concatenate([a, np.repeat(a[-1:], pad)])
+                      for a in (seq, pos, offs))
+    t = len(seq)
+
+    def rand(*shape):
+        return torch.tensor(gen.standard_normal(shape, np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    k_span, v_span = rand(t, kv, hd), rand(t, kv, hd)
+    if pad:
+        k_span[n_valid:], v_span[n_valid:] = (x[n_valid - 1]
+                                              for x in (k_span, v_span))
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    return dict(q=rand(t, h, hd), k=rand(ROWS, window, kv, hd),
+                v=rand(ROWS, window, kv, hd), k_span=k_span, v_span=v_span,
+                positions=i32(pos), rows=i32(np.asarray(cache_rows)[seq]),
+                offsets=i32(offs), n_valid=n_valid, window=window,
+                cache_rows=i32(np.asarray(cache_rows)[:len(spans)]),
+                np=dict(pos=pos, seq=seq, offs=offs, w_slots=window))
+
+
+def phase_contiguous_kernels(dev, card):
+    """The contiguous layout's kernels (rows 9-12 of PERF.md's table and
+    the contiguous modes of both decode kernels), over [R, S, Kv, hd] rows
+    read out of order: rows 9, 10 and the full decode modes at stablelm's
+    shapes (H = Kv = 32, hd 64, S = 640 rows: the engine phase's
+    max_seq_len) and at g = 4; rows 11, 12 and the rolling decode modes at
+    mixtral's (H 32, Kv 8, hd 128) over rows of W = 4096 (wrapped and
+    not), then W = 64 (every row wrapped, the span padded).  Checked and
+    timed as the paged kernels."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import kv_tile, quantize_kv
+
+    gen = np.random.default_rng(SEED + 4)
+    quant = lambda c: [*quantize_kv(c["k"]), *quantize_kv(c["v"])]
+    results = []
+
+    # stablelm: the engine phase's 256-token chunk over 4 ragged rows, and
+    # a decode batch of 8 with contexts up to S = 640
+    h, hd, s_rows = 32, 64, 640
+    spans = [(0, 96), (200, 64), (448, 64), (120, 32)]
+    span_b = np.concatenate([np.full(n, r) for r, (_, n) in enumerate(spans)])
+    span_pos = np.concatenate([st + np.arange(n) for st, n in spans])
+    span_rows = [5, 2, 7, 0]                   # of ROWS = 8, out of order
+    dec_pos = gen.integers(100, s_rows + 1, 8) - 1
+    dec_pos_gqa = np.array([0, 1, 15, 16, 63, 64, 500, 639])
+    dec_rows = gen.permutation(8)
+    for name, kernel, plain, q8, decode, src, replaces in (
+            ("span_attention", ksa.span_attention, ksa.span_attention_plain,
+             False, False, "src/repro_torch/csrc/span_attention.cu",
+             "src/repro/kernels/span_attention.py:132"),
+            ("span_attention_quant", ksa.span_attention_quant,
+             ksa.span_attention_quant_plain, True, False,
+             "src/repro_torch/csrc/span_attention_quant.cu",
+             "src/repro/kernels/span_attention.py:239"),
+            ("contiguous_decode_attention", kda.contiguous_decode_attention,
+             kda.contiguous_decode_attention_plain, False, True,
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:72 (its own contiguous "
+             "layout, lengths = positions + 1)"),
+            ("contiguous_decode_attention_quant",
+             kda.contiguous_decode_attention_quant,
+             kda.contiguous_decode_attention_quant_plain, True, True,
+             "src/repro_torch/csrc/decode_attention_quant.cu",
+             "src/repro/models/attention.py:553 (jnp decode_attention_quant "
+             "on cache rows; no Pallas kernel)")):
+        entry = None
+        for kv in (32, 8):                          # main shape, then g = 4
+            if decode:
+                pos = dec_pos if kv == h else dec_pos_gqa
+                case = _row_case(gen, pos, np.arange(8), dec_rows, s_rows,
+                                 h, kv, hd, dev)
+                index = [case["rows"], case["positions"]]
+            else:
+                case = _row_case(gen, span_pos, span_b, span_rows, s_rows, h,
+                                 kv, hd, dev)
+                index = [case["positions"], case["rows"]]
+            cache = quant(case) if q8 else [case["k"], case["v"]]
+            args = [case["q"], *cache, *index]
+            label = f"R={ROWS} S={s_rows} H={h} Kv={kv} hd={hd}"
+            if q8 and not decode:
+                label += f" p-tile={kv_tile(512, s_rows)}"
+            err = _held(name, kernel, plain, args, label)
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            ms = _kernel_ms(kernel, lambda: kernel(*args))
+            plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
+            lib_ms = None
+            if not q8:
+                q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode,
+                                            views=_row_views(case))
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=m4, enable_gqa=True), reps=20)
+                del q4, k4, v4, m4
+            entry = _entry(name, src, replaces, err, ms, plain_ms,
+                           _bound(case, h, hd, quant=q8), lib_ms, card)
+        results.append((kernel, entry))
+
+    # mixtral: the rolling phase's spans and decode contexts over rows of
+    # W slots, 8 rows out of order
+    h, kv, hd = 32, 8, 128
+    spans = [(100, 64), (4050, 64), (4500, 64), (9000, 64)]
+    spans64 = [(100, 64), (4050, 64), (4500, 64), (9000, 60)]
+    dec = [(p, 1) for p in (99, 700, 2047, 4095, 4096, 4600, 7000, 8999)]
+    row_perm = gen.permutation(8)
+    for name, kernel, plain, q8, src, replaces in (
+            ("span_attention_rolling", ksa.span_attention_rolling,
+             ksa.span_attention_rolling_plain, False,
+             "src/repro_torch/csrc/span_attention_rolling.cu",
+             "src/repro/kernels/span_attention.py:519"),
+            ("span_attention_rolling_quant", ksa.span_attention_rolling_quant,
+             ksa.span_attention_rolling_quant_plain, True,
+             "src/repro_torch/csrc/span_attention_rolling_quant.cu",
+             "src/repro/kernels/span_attention.py:456")):
+        entry = None
+        for window, sp, pad in ((4096, spans, 0), (64, spans64, 4)):
+            case = _row_rolling_case(gen, sp, window, row_perm, h, kv, hd,
+                                     dev, pad)
+            cache = quant(case) if q8 else [case["k"], case["v"]]
+            args = [case["q"], *cache, case["k_span"], case["v_span"],
+                    case["positions"], case["rows"], case["offsets"],
+                    case["n_valid"]]
+            kw = {"window": window}
+            label = (f"W={window} H={h} Kv={kv} hd={hd} "
+                     f"T={case['q'].shape[0]} n_valid={case['n_valid']}")
+            if q8:
+                label += f" p-tile={kv_tile(512, window)}"
+            err = _held(name, kernel, plain, args, label, **kw)
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+            lib_ms = None
+            if not q8:
+                sdpa = _rolling_sdpa_args(
+                    case, h, hd, views=_row_views(case))
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True), reps=20)
+                del sdpa
+            entry = _entry(name, src, replaces, err, ms, plain_ms,
+                           _rolling_bound(case, h, hd, q8), lib_ms, card)
+        results.append((kernel, entry))
+
+    for name, kernel, plain, q8, src, replaces in (
+            ("contiguous_decode_attention_rolling",
+             kda.contiguous_decode_attention_rolling,
+             kda.contiguous_decode_attention_plain, False,
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:72 (contiguous rolling "
+             "mode: the reference runs jnp decode_attention(rolling_window) "
+             "on its rows, transformer.py:145-167)"),
+            ("contiguous_decode_attention_quant_rolling",
+             kda.contiguous_decode_attention_quant_rolling,
+             kda.contiguous_decode_attention_quant_plain, True,
+             "src/repro_torch/csrc/decode_attention_quant.cu",
+             "src/repro/models/attention.py:553 (jnp decode_attention_quant"
+             "(rolling_window) on cache rows; no Pallas kernel)")):
+        entry = None
+        for window in (4096, 64):
+            case = _row_rolling_case(gen, dec, window, row_perm, h, kv, hd,
+                                     dev)
+            cache = quant(case) if q8 else [case["k"], case["v"]]
+            args = [case["q"], *cache, case["rows"], case["positions"]]
+            kw = {"window": window}
+            pl = lambda *a, **_: plain(*a, rolling_window=window)
+            err = _held(name, kernel, pl, args,
+                        f"W={window} B=8 contexts 100-9000", **kw)
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            plain_ms = _time_ms(lambda: pl(*args), reps=3, warmup=1)
+            vis = np.minimum(case["np"]["pos"] + 1, window)
+            per_slot = (hd + 2) * 2 if q8 else hd * 2 * 2
+            n_bytes = (int(vis.sum()) * kv * per_slot + 2 * 8 * h * hd * 2
+                       + 4 * 2 * 8)
+            ops = 4 * h * hd * int(vis.sum())
+            bound = (_roofline(n_bytes, 0, ops) if q8
+                     else _roofline(n_bytes, ops))
+            lib_ms = None
+            if not q8:
+                kg, vg = (x.transpose(1, 2) for x in _row_views(case))
+                idx = torch.arange(window, device=dev)
+                m4 = (idx[None] < torch.tensor(vis, device=dev)[:, None])
+                q4 = case["q"][:, :, None]               # [B, H, 1, hd]
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=m4[:, None, None],
+                    enable_gqa=True), reps=20)
+                del kg, vg
+            entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                           lib_ms, card)
+        results.append((kernel, entry))
+    return results
+
+
+def _engine(engine_cls, params, model, chunk, max_seq_len=640, max_batch=4,
+            kv_layout="auto"):
+    """pp = 2, paged KV unless ``kv_layout`` says otherwise; ``chunk``
+    tokens per iteration under the chunked policy, or None: the default
+    policy, monolithic prefill."""
     from repro_torch.core.engine import EngineConfig
     ecfg = EngineConfig(pp_degree=2, max_batch=max_batch,
                         max_seq_len=max_seq_len,
                         prefill_chunk_tokens=chunk,
                         scheduling_policy="chunked" if chunk else "auto",
-                        seed=SEED)
+                        kv_layout=kv_layout, seed=SEED)
     return engine_cls(model, params, ecfg)
 
 
 def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
-           max_seq_len=640, max_batch=4, trace=None):
+           max_seq_len=640, max_batch=4, trace=None, kv_layout="auto",
+           logits=None):
     """Serve ``prompts`` to the end, every launch counter set to 0 just
     before and read just after.  Returns the streams (by request), the
     engine's metrics, the wall seconds, the launches and the peak
     device memory.  ``trace``, a list, receives each iteration's members
-    and spans."""
+    and spans; ``logits``, a list, each sampling step's members and
+    logits (host copies)."""
     import torch
     gc.collect()        # the previous run's engine (its threads hold cycles)
-    eng = _engine(engine_cls, params, model, chunk, max_seq_len, max_batch)
+    eng = _engine(engine_cls, params, model, chunk, max_seq_len, max_batch,
+                  kv_layout)
+    if logits is not None:
+        pool = eng._pool_sample
+
+        def record_logits(iteration, slot, seq_ids, x, sp_list):
+            logits.append((list(seq_ids), np.array(x, np.float32)))
+            return pool(iteration, slot, seq_ids, x, sp_list)
+        eng._pool_sample = record_logits
     if trace is not None:
         schedule = eng.scheduler.schedule
 
@@ -715,9 +979,11 @@ def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
     return streams, m, wall, launches, peak
 
 
-def _report(label, prompts, run, card, n_new, must_launch):
+def _report(label, prompts, run, card, n_new, must_launch,
+            must_not_launch=()):
     """Print a path's metrics; fail unless every request finished with
-    ``n_new`` tokens and each kernel in ``must_launch`` launched."""
+    ``n_new`` tokens, each kernel in ``must_launch`` launched, and none in
+    ``must_not_launch`` did."""
     streams, m, wall, launches, peak = run
     n_tok = [len(x) for x in streams]
     print(f"engine {label}: {len(streams)} requests, prompts "
@@ -737,7 +1003,19 @@ def _report(label, prompts, run, card, n_new, must_launch):
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the {label} path")
+    for name in must_not_launch:
+        if launches[name]:
+            raise AssertionError(f"{name} launched on the {label} path")
     return launches
+
+
+def _serving_params():
+    """The serving CLI's sampling (temperature, top-k, top-p, penalties),
+    32 new tokens."""
+    from repro_torch.core.sampling_params import SamplingParams
+    return SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                          frequency_penalty=0.2, presence_penalty=0.1,
+                          max_new_tokens=32)
 
 
 def phase_engine(dev, gen, kernels, card):
@@ -759,9 +1037,11 @@ def phase_engine(dev, gen, kernels, card):
     prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist()
                for n in gen.integers(64, 513, 8)]
     entries = {e["name"]: e for _, e in kernels}
+    paged = {}       # each path's streams, for the contiguous phase
 
-    def serve(cls, mdl, sp, chunk, reqs=prompts):
-        return _serve(cls, mdl, params, reqs, sp, chunk, kernels)
+    def serve(cls, mdl, sp, chunk, reqs=prompts, logits=None):
+        return _serve(cls, mdl, params, reqs, sp, chunk, kernels,
+                      logits=logits)
 
     def same(label, a, b):
         print(f"engine {label}: greedy SiPipe == Naive: {a == b} "
@@ -772,15 +1052,14 @@ def phase_engine(dev, gen, kernels, card):
     # chunked policy: greedy parity at equal composition on 2 requests,
     # then the 8-request sampled run
     greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
-    same("chunked 2-request",
-         *(serve(cls, model, greedy16, 256, prompts[:2])[0]
-           for cls in (SiPipeEngine, NaivePPEngine)))
-    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
-                        frequency_penalty=0.2, presence_penalty=0.1,
-                        max_new_tokens=32)
-    launches = _report("chunked", prompts, serve(SiPipeEngine, model, sp, 256),
-                       card, 32, ("paged_span_attention",
-                                  "paged_decode_attention"))
+    pair = [serve(cls, model, greedy16, 256, prompts[:2])[0]
+            for cls in (SiPipeEngine, NaivePPEngine)]
+    same("chunked 2-request", *pair)
+    paged["chunked 2-request"] = pair[0]
+    run = serve(SiPipeEngine, model, _serving_params(), 256)
+    launches = _report("chunked", prompts, run, card, 32,
+                       ("paged_span_attention", "paged_decode_attention"))
+    paged["chunked"] = run[0]
     for name in ("paged_span_attention", "paged_decode_attention"):
         entries[name]["launches"] = launches[name]
 
@@ -789,12 +1068,15 @@ def phase_engine(dev, gen, kernels, card):
     run = serve(SiPipeEngine, model, greedy, None)
     launches = _report("monolithic", prompts, run, card, 32,
                        ("flash_attention", "paged_decode_attention"))
+    paged["monolithic"] = run[0]
     entries["flash_attention"]["launches"] = launches["flash_attention"]
     same("monolithic", run[0], serve(NaivePPEngine, model, greedy, None)[0])
 
     # (b) the int8 KV cache (same weights), chunked then monolithic
     model_q = build_model(cfg, ModelOptions(kv_quant=True))
-    run = serve(SiPipeEngine, model_q, greedy, 256)
+    logits = []
+    run = serve(SiPipeEngine, model_q, greedy, 256, logits=logits)
+    paged["int8 chunked"] = (run[0], logits)
     launches = _report("int8 chunked", prompts, run, card, 32,
                        ("paged_span_attention_quant",
                         "paged_decode_attention_quant"))
@@ -803,7 +1085,9 @@ def phase_engine(dev, gen, kernels, card):
     chunked_q = run[0]
     same("int8 chunked", chunked_q,
          serve(NaivePPEngine, model_q, greedy, 256)[0])
-    run = serve(SiPipeEngine, model_q, greedy, None)
+    logits = []
+    run = serve(SiPipeEngine, model_q, greedy, None, logits=logits)
+    paged["int8 monolithic"] = (run[0], logits)
     _report("int8 monolithic", prompts, run, card, 32,
             ("flash_attention", "paged_decode_attention_quant"))
     # monolithic prefill attends full-precision K/V, chunks the int8
@@ -817,7 +1101,7 @@ def phase_engine(dev, gen, kernels, card):
           f"{sum(x == y for x, y in zip(mono_q, chunked_q))}/{len(prompts)}"
           f" streams identical, {equal}/{32 * len(prompts)} tokens equal, "
           f"first difference at {first}", flush=True)
-    del params
+    return params, prompts, paged
 
 
 def phase_mixtral(dev, kernels, card):
@@ -829,11 +1113,8 @@ def phase_mixtral(dev, kernels, card):
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
-    from repro_torch.core.sampling_params import SamplingParams
-    from repro_torch.models.registry import ModelOptions, build_model
-
     from repro_torch.configs.mixtral_8x7b import ONE_CARD_LAYERS
+    from repro_torch.models.registry import ModelOptions, build_model
 
     gen = np.random.default_rng(SEED + 3)
     full = get_config("mixtral-8x7b")
@@ -856,9 +1137,7 @@ def phase_mixtral(dev, kernels, card):
     lens = lens[gen.permutation(8)]
     prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist() for n in lens]
     pair = [prompts[int(np.argmin(lens))], prompts[int(np.argmax(lens))]]
-    entries = {e["name"]: e for _, e in kernels}
-    greedy = SamplingParams(greedy=True, max_new_tokens=32)
-    greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
+    paged = {}       # each path's streams, for the contiguous phase
     for label, opts, chunk, names in (
             ("mixtral chunked", ModelOptions(), 256,
              ("paged_span_attention_rolling",
@@ -871,30 +1150,188 @@ def phase_mixtral(dev, kernels, card):
             ("mixtral int8 monolithic", ModelOptions(kv_quant=True), None,
              ("flash_attention_windowed",
               "paged_decode_attention_quant_rolling"))):
-        mdl = build_model(cfg, opts)
-        run = _serve(SiPipeEngine, mdl, params, prompts, greedy, chunk,
-                     kernels, max_seq_len=5120)
-        launches = _report(label, prompts, run, card, 32, names)
-        for name in names:       # each entry: the first path that runs it
-            if not entries[name]["launches"]:
-                entries[name]["launches"] = launches[name]
-        # one request per microbatch, so that each step's composition
-        # (which an MoE's capacity and the bucket padding see) cannot
-        # depend on the overlapped engine's timing
-        traces = ([], [])
-        a, b = (_serve(cls, mdl, params, pair, greedy16, chunk, kernels,
-                       max_seq_len=5120, max_batch=1, trace=tr)[0]
-                for cls, tr in zip((SiPipeEngine, NaivePPEngine), traces))
-        print(f"engine {label} 2-request (prompts {len(pair[0])}, "
-              f"{len(pair[1])}, one per microbatch): schedules equal: "
-              f"{traces[0] == traces[1]}; greedy SiPipe == Naive: {a == b} "
-              f"({a[1][:8]}...)", flush=True)
+        paged[label] = _mixtral_path(label, build_model(cfg, opts), params,
+                                     prompts, pair, chunk, names, kernels,
+                                     card)
+    return cfg, params, prompts, pair, paged
+
+
+def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
+                  card, kv_layout="auto", must_not_launch=()):
+    """One mixtral path: 8 greedy requests through SiPipeEngine (every one
+    must finish, ``names`` must launch and ``must_not_launch`` must not),
+    then ``pair`` with one request per microbatch, so that each step's
+    composition (which an MoE's capacity and the bucket padding see)
+    cannot depend on the overlapped engine's timing: SiPipe's schedule and
+    greedy streams must equal NaivePPEngine's.  Returns the 8 streams, the
+    pair's streams and the Naive pair run's logits."""
+    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
+    from repro_torch.core.sampling_params import SamplingParams
+    entries = {e["name"]: e for _, e in kernels}
+    greedy = SamplingParams(greedy=True, max_new_tokens=32)
+    greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
+    run = _serve(SiPipeEngine, model, params, prompts, greedy, chunk,
+                 kernels, max_seq_len=5120, kv_layout=kv_layout)
+    launches = _report(label, prompts, run, card, 32, names, must_not_launch)
+    for name in names:           # each entry: the first path that runs it
+        if not entries[name]["launches"]:
+            entries[name]["launches"] = launches[name]
+    traces, logits = ([], []), []
+    a, b = (_serve(cls, model, params, pair, greedy16, chunk, kernels,
+                   max_seq_len=5120, max_batch=1, trace=tr,
+                   kv_layout=kv_layout, logits=lg)[0]
+            for cls, tr, lg in zip((SiPipeEngine, NaivePPEngine), traces,
+                                   (None, logits)))
+    print(f"engine {label} 2-request (prompts {len(pair[0])}, "
+          f"{len(pair[1])}, one per microbatch): schedules equal: "
+          f"{traces[0] == traces[1]}; greedy SiPipe == Naive: {a == b} "
+          f"({a[1][:8]}...)", flush=True)
+    if traces[0] != traces[1]:
+        raise AssertionError(f"{label}: schedules differ: {traces}")
+    if a != b:
+        raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
+    return dict(streams=run[0], pair=a, logits=logits)
+
+
+def _logit_gap(a, b):
+    """(max |logits a - logits b|, steps compared) over the sampling steps
+    two runs share, in order (same members), up to and including the
+    first step whose greedy tokens differ."""
+    worst, n = 0.0, 0
+    for (ia, xa), (ib, xb) in zip(a, b):
+        if ia != ib or xa.shape != xb.shape:
+            break
+        worst, n = max(worst, float(np.abs(xa - xb).max())), n + 1
+        if (xa.argmax(-1) != xb.argmax(-1)).any():
+            break
+    return worst, n
+
+
+def _layouts(label, contiguous, paged, exact, logits=None):
+    """Print how a contiguous path's greedy streams compare with the paged
+    path's from this run (and, given both runs' logits, their largest
+    difference); with ``exact``, fail unless they are equal."""
+    equal = sum(x == y for x, y in zip(contiguous, paged))
+    line = (f"engine {label}: contiguous == paged: {contiguous == paged} "
+            f"({equal}/{len(paged)} streams identical)")
+    if logits is not None:
+        gap, n = _logit_gap(*logits)
+        line += f"; max |logits contiguous - paged| {gap:.3e} over {n} steps"
+    print(line, flush=True)
+    if exact and contiguous != paged:
+        raise AssertionError(f"{label}: contiguous streams differ from the "
+                             f"paged ones: {contiguous} {paged}")
+
+
+def phase_contiguous_dense(kernels, card, params, prompts, paged):
+    """stablelm-1.6b (the engine phase's weights and prompts) over
+    contiguous rows (8 rows of 640 slots) on the engine phase's four
+    paths: SiPipe's greedy schedules and streams must equal Naive's, every
+    request must finish, the contiguous kernels must launch and the paged
+    ones must not; the bf16 greedy streams must equal the paged paths'
+    (the kernels share their bodies), the int8 ones are compared."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
+    from repro_torch.core.sampling_params import SamplingParams
+    from repro_torch.models.registry import ModelOptions, build_model
+
+    cfg = get_config("stablelm-1.6b")
+    entries = {e["name"]: e for _, e in kernels}
+    not_paged = [n for n in entries if n.startswith("paged_")]
+    greedy = SamplingParams(greedy=True, max_new_tokens=32)
+
+    def serve(cls, mdl, sp, chunk, reqs=prompts, **kw):
+        return _serve(cls, mdl, params, reqs, sp, chunk, kernels,
+                      kv_layout="contiguous", **kw)
+
+    def parity(label, mdl, sp, chunk, reqs, names=None):
+        """SiPipe then Naive, greedy: equal schedules and streams; SiPipe's
+        run is reported (``names`` must launch); returns it and its
+        logits."""
+        traces, logits = ([], []), []
+        runs = [serve(cls, mdl, sp, chunk, reqs, trace=tr, logits=lg)
+                for cls, tr, lg in zip((SiPipeEngine, NaivePPEngine), traces,
+                                       (logits, None))]
+        if names is not None:
+            launches = _report(label, reqs, runs[0], card, sp.max_new_tokens,
+                               names, not_paged)
+            for name in names:
+                if not entries[name]["launches"]:
+                    entries[name]["launches"] = launches[name]
+        a, b = runs[0][0], runs[1][0]
+        print(f"engine {label}: schedules equal: {traces[0] == traces[1]}; "
+              f"greedy SiPipe == Naive: {a == b} ({a[0][:8]}...)", flush=True)
         if traces[0] != traces[1]:
             raise AssertionError(f"{label}: schedules differ: {traces}")
         if a != b:
             raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
-    del params
-    torch.cuda.empty_cache()
+        return runs[0], logits
+
+    greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
+    run, _ = parity("contiguous chunked 2-request", build_model(cfg),
+                    greedy16, 256, prompts[:2])
+    _layouts("contiguous chunked 2-request", run[0],
+             paged["chunked 2-request"], exact=True)
+    model = build_model(cfg)
+    run = serve(SiPipeEngine, model, _serving_params(), 256)
+    names = ("span_attention", "contiguous_decode_attention")
+    launches = _report("contiguous chunked", prompts, run, card, 32, names,
+                       not_paged)
+    for name in names:
+        entries[name]["launches"] = launches[name]
+    # sampled: the same draws wherever the logits are the same
+    _layouts("contiguous chunked (sampled)", run[0], paged["chunked"],
+             exact=False)
+    run, _ = parity("contiguous monolithic", model, greedy, None, prompts,
+                    ("flash_attention", "contiguous_decode_attention"))
+    _layouts("contiguous monolithic", run[0], paged["monolithic"],
+             exact=True)
+    # int8: the span's p-tile is 640 rows' (kv_block 512 halved to 128)
+    # here and the table width's there, so the two layouts' chunk steps
+    # are different functions wherever the tiles differ
+    model_q = build_model(cfg, ModelOptions(kv_quant=True))
+    for label, chunk, names in (
+            ("contiguous int8 chunked", 256,
+             ("span_attention_quant", "contiguous_decode_attention_quant")),
+            ("contiguous int8 monolithic", None,
+             ("flash_attention", "contiguous_decode_attention_quant"))):
+        run, logits = parity(label, model_q, greedy, chunk, prompts, names)
+        streams, paged_logits = paged[label.replace("contiguous ", "")]
+        _layouts(label, run[0], streams, exact=False,
+                 logits=(logits, paged_logits))
+
+
+def phase_contiguous_mixtral(kernels, card, cfg, params, prompts, pair, paged):
+    """mixtral-8x7b (the mixtral phase's weights, prompts and pair) over
+    contiguous rolling rows, each exactly W = 4096 slots wide, 8 rows:
+    chunked and monolithic in bf16, chunked in int8, each as the mixtral
+    phase's paths; the bf16 pair's greedy streams must equal the paged
+    pair's, the int8 ones are compared."""
+    from repro_torch.models.registry import ModelOptions, build_model
+    not_paged = [e["name"] for _, e in kernels
+                 if e["name"].startswith("paged_")]
+    for label, opts, chunk, names in (
+            ("mixtral chunked", ModelOptions(), 256,
+             ("span_attention_rolling",
+              "contiguous_decode_attention_rolling")),
+            ("mixtral monolithic", ModelOptions(), None,
+             ("flash_attention_windowed",
+              "contiguous_decode_attention_rolling")),
+            ("mixtral int8 chunked", ModelOptions(kv_quant=True), 256,
+             ("span_attention_rolling_quant",
+              "contiguous_decode_attention_quant_rolling"))):
+        got = _mixtral_path(f"contiguous {label}", build_model(cfg, opts),
+                            params, prompts, pair, chunk, names, kernels,
+                            card, kv_layout="contiguous",
+                            must_not_launch=not_paged)
+        quant = opts.kv_quant
+        _layouts(f"contiguous {label} 2-request", got["pair"],
+                 paged[label]["pair"], exact=not quant,
+                 logits=(got["logits"], paged[label]["logits"]))
+        # 8 requests share microbatches: MoE capacity sees a composition
+        # the overlapped engine's timing may change, so compared only
+        _layouts(f"contiguous {label}", got["streams"],
+                 paged[label]["streams"], exact=False)
 
 
 def _smoke_logits(model, params, d, first, toks, padded):
@@ -968,7 +1405,7 @@ def phase_reference(dev):
                                      f"disagree with the CPU")
 
 
-PHASES = ("kernels", "rolling", "engine", "mixtral", "reference")
+PHASES = ("kernels", "rolling", "engine", "mixtral", "contiguous", "reference")
 
 
 def main(argv=None) -> int:
@@ -1005,10 +1442,23 @@ def main(argv=None) -> int:
         kernels += phase_kernels(dev, gen, card)
     if "rolling" in phases:
         kernels += phase_rolling_kernels(dev, card)
+    contiguous = "contiguous" in phases
+    if contiguous:
+        kernels += phase_contiguous_kernels(dev, card)
+    # the contiguous paths reuse each model phase's weights and prompts
+    # and compare with its paged streams, so they run right after it
     if "engine" in phases:
-        phase_engine(dev, gen, kernels, card)
+        held = phase_engine(dev, gen, kernels, card)
+        if contiguous:
+            phase_contiguous_dense(kernels, card, *held)
+        del held
     if "mixtral" in phases:
-        phase_mixtral(dev, kernels, card)
+        held = phase_mixtral(dev, kernels, card)
+        if contiguous:
+            phase_contiguous_mixtral(kernels, card, *held)
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
     if "reference" in phases:
         phase_reference(dev)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)

@@ -1,8 +1,8 @@
 """The SiPipe serving engine (§4) on PyTorch: scheduler + p stage workers +
 CPU sampler pool + BIC channels, running the port's model end to end.
 
-A port of ``repro.core.engine`` over the paged KV cache.  Two engines
-share all components:
+A port of ``repro.core.engine`` over the paged KV cache and over
+contiguous cache rows.  Two engines share all components:
 
   SiPipeEngine  — CPU column-wise sampling (decoupled from the last stage),
                   TSEM double-buffered CPU/device executors per stage, SAT
@@ -23,8 +23,12 @@ A model built with ``ModelOptions(kv_quant=True)`` keeps an int8 cache
 and runs the int8 twins of the paged kernels.  A sliding-window model
 (mixtral's MoE family) keeps a rolling cache, position p at logical slot
 p % W, so a sequence holds at most W / block_size blocks and its chunks
-take the rolling span kernels.  The contiguous layout is not ported yet
-(ROADMAP.md queue 1).
+take the rolling span kernels.  The contiguous layout
+(``kv_layout="contiguous"``, and ``auto`` for a window that is not a
+block multiple) gives each sequence one cache row of max_seq_len (or W)
+slots from a pool of max_batch * pp rows: the stage steps read and write
+the rows in place through the contiguous kernels, without block tables,
+prefix caching, preemption or copy-on-write forks.
 """
 from __future__ import annotations
 
@@ -80,8 +84,8 @@ class PPStage:
     groups: Tuple[int, int]              # [lo, hi) of the blocks stack
     params: Any
     prefill_fn: Callable                 # (params, x_or_tokens[B,S], pos0, last_idx[B]) -> (x|logits, cache)
-    decode_fn: Callable                  # (params, cache, x_or_tokens[B], positions[B], tables) -> x|logits
-    chunk_fn: Callable                   # (params, cache, x_or_tokens[T], positions[T], seq_idx[T], last_idx[B], tables, span_starts[B], n_valid) -> x|logits
+    decode_fn: Callable                  # (params, cache, x_or_tokens[B], positions[B], tables, rows[B]) -> x|logits
+    chunk_fn: Callable                   # (params, cache, x_or_tokens[T], positions[T], seq_idx[T], last_idx[B], tables, span_starts[B], n_valid, rows[B]) -> x|logits
 
     @property
     def is_first(self) -> bool:
@@ -141,30 +145,34 @@ def _make_stage(model: Model, idx: int, p: int, bounds, sp) -> PPStage:
             return model.lm_head(params, x[rows, last_idx.long()]), cache
         return x, cache
 
-    def decode_fn(params, cache, x_or_tokens, positions, tables):
-        """Pure-decode step.  ``cache`` leaves are block-major
-        [groups, n_blocks, bs, ...]; attention reads and writes through
-        the [B, nb] block table, and the cache changes in exactly the
-        slots of this step's tokens (written in place)."""
-        ctx = model.make_ctx("decode", positions, block_tables=tables)
+    def decode_fn(params, cache, x_or_tokens, positions, tables=None,
+                  rows=None):
+        """Pure-decode step.  Paged: ``cache`` leaves are block-major
+        [groups, n_blocks, bs, ...] and attention reads and writes through
+        the [B, nb] block table ``tables``.  Contiguous (``tables`` None):
+        leaves [groups, R, S, ...] and batch row b lives in cache row
+        ``rows[b]`` ([B] int32).  Either way the cache changes in exactly
+        the slots of this step's tokens (written in place)."""
+        ctx = model.make_ctx("decode", positions, block_tables=tables,
+                             rows=rows)
         x = model.embed_tokens(params, x_or_tokens) if first else x_or_tokens
         x = run_stack(sub, params["blocks"], x, ctx, cache)
         return model.lm_head(params, x) if last else x
 
     def chunk_fn(params, cache, x_or_tokens, positions, seq_idx, last_idx,
-                 tables, span_starts=None, n_valid=None):
+                 tables=None, span_starts=None, n_valid=None, rows=None):
         """Mixed chunked-prefill/decode step over the packed ragged layout:
         the batch's valid span tokens concatenated into flat [T] vectors
         (T = the power-of-two bucket; padding duplicates the last valid
         token).  ``seq_idx`` [T] maps each token to its batch row and
         ``last_idx`` [B] is the packed index of each row's final token,
-        whose logits feed the sampler.  ``tables`` as in ``decode_fn``.
-        Windowed models also take ``span_starts`` [B] (each row's span
-        offset: the tokens already in its rolling cache) and ``n_valid``,
-        the unpadded token count (an int)."""
+        whose logits feed the sampler.  ``tables`` and ``rows`` as in
+        ``decode_fn``.  Windowed models also take ``span_starts`` [B] (each
+        row's span offset: the tokens already in its rolling cache);
+        ``n_valid`` is the unpadded token count (an int)."""
         ctx = model.make_ctx("chunk", positions, seq_idx=seq_idx,
                              span_starts=span_starts, n_valid=n_valid,
-                             block_tables=tables)
+                             block_tables=tables, rows=rows)
         x = model.embed_tokens(params, x_or_tokens) if first else x_or_tokens
         x = run_stack(sub, params["blocks"], x, ctx, cache)
         return model.lm_head(params, x[last_idx.long()]) if last else x
@@ -203,6 +211,16 @@ def write_prefill(cache, fresh, tables: torch.Tensor, pad_block: int) -> None:
         # [n, B, spb * bs, ...] -> [n, B, spb, bs, ...] blocks
         cache[lk][kk][:, st] = c_new.reshape(
             *c_new.shape[:2], spb, bs, *c_new.shape[3:])
+
+
+def write_prefill_rows(cache, fresh, rows: torch.Tensor) -> None:
+    """Write a prefill pass's K/V into contiguous cache rows, in place
+    (the reference's ``c_all.at[:, rows, :sp].set(c_new)``): ``fresh``
+    leaves [groups, B, Sp, ...] (``prefill_fn``'s cache; Sp = W for a
+    rolling row), ``cache`` leaves [groups, R, S, ...], ``rows`` [B]."""
+    r = rows.long()
+    for lk, kk, c_new in _leaves(fresh):
+        cache[lk][kk][:, r, :c_new.shape[2]] = c_new
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +268,10 @@ class EngineConfig:
     # "paged": vLLM-style block tables over a [n_blocks, block_size, ...]
     # physical cache; admission is block-budget accounting, decode growth
     # under pressure preempts (and later recomputes) the lowest-priority
-    # sequence.  Attention runs through the block table.  "auto" resolves
-    # to it; "contiguous" (dense per-sequence rows) is not ported yet and
-    # raises.
+    # sequence.  Attention runs through the block table.  "contiguous":
+    # one dense [max_seq_len] (or [W]) cache row per sequence from a pool
+    # of max_batch * pp rows.  "auto" resolves to paged, or to contiguous
+    # for a window that is not a multiple of kv_block_size.
     kv_layout: str = "auto"
     kv_block_size: int = 16
     # total physical blocks (None = the same slot budget contiguous rows
@@ -293,13 +312,20 @@ class _StageWorker:
         self.engine = engine
         self.metrics = StageMetrics()
         cfg = engine.cfg
-        # physical cache [groups, n_blocks + 1, block_size, ...] per leaf:
-        # logical slot p of a sequence lives at (block_table[p // bs],
-        # p % bs); the extra final block is the trash block padded table
-        # entries point at (writes discarded, reads position-masked)
-        self.cache = engine.model.paged_cache(
-            stage.n_groups, engine.kv_manager.n_blocks + 1,
-            cfg.kv_block_size, device=engine.device, dtype=engine.dtype)
+        if engine.paged:
+            # physical cache [groups, n_blocks + 1, block_size, ...] per
+            # leaf: logical slot p of a sequence lives at
+            # (block_table[p // bs], p % bs); the extra final block is the
+            # trash block padded table entries point at (writes discarded,
+            # reads position-masked)
+            self.cache = engine.model.paged_cache(
+                stage.n_groups, engine.kv_manager.n_blocks + 1,
+                cfg.kv_block_size, device=engine.device, dtype=engine.dtype)
+        else:
+            # contiguous rows [groups, max_batch * pp, S, ...] per leaf
+            self.cache = engine.model.row_cache(
+                stage.n_groups, cfg.max_batch * cfg.pp_degree,
+                cfg.max_seq_len, device=engine.device, dtype=engine.dtype)
         self.meta_cache = BatchMetadataCache(cfg.pp_degree)
         ch = StructureAwareChannel if cfg.sat else StructureUnawareChannel
         self.out_channel = ch(cfg.channel_round_latency_s) if not stage.is_last else None
@@ -314,11 +340,16 @@ class _StageWorker:
 
     # -- CPU executor side ---------------------------------------------------
     def _prepare(self, sched: SchedulingOutput, bufs: Dict[str, np.ndarray]):
-        # placement is the scheduler's block-table snapshot; rows are
-        # meaningless (the batch dim is positional) and the dirty-slot
-        # write-back mapping is derived in the stage from the table +
-        # positions — nothing else to stage
-        rows = np.zeros(len(sched.seq_ids), np.int32)
+        eng = self.engine
+        if eng.paged:
+            # placement is the scheduler's block-table snapshot; rows are
+            # meaningless (the batch dim is positional) and the dirty-slot
+            # write-back mapping is derived in the stage from the table +
+            # positions — nothing else to stage
+            rows = np.zeros(len(sched.seq_ids), np.int32)
+        else:
+            rows = np.array([eng.seq_cache.lookup(s).cache_row
+                             for s in sched.seq_ids], np.int32)
         meta = self.meta_cache.update(sched, rows)
         np.copyto(bufs["tokens"], meta.tokens)
         np.copyto(bufs["positions"], meta.positions)
@@ -369,20 +400,26 @@ class _StageWorker:
         # paged-native path: the physical block-major cache and the
         # [B, nb] table go straight into the stage — attention reads K/V
         # through the table (the paged CUDA kernels; no gathered
-        # [B, nb * bs] view) and only the slots this iteration's tokens
-        # dirtied are written, in place
-        tables = self._dev(bufs["block_tables"])
+        # [B, nb * bs] view).  Contiguous rows: the whole [R, S] cache and
+        # the batch's rows, read by the contiguous kernels in place where
+        # the reference gathers and scatters the rows around the step.
+        # Either way only the slots this iteration's tokens dirtied are
+        # written, in place
+        if eng.paged:
+            place = {"tables": self._dev(bufs["block_tables"])}
+        else:
+            place = {"rows": self._dev(bufs["rows"])}
         if desc.width > 1:
             out = stage.chunk_fn(
                 stage.params, self.cache, x_in,
                 self._dev(bufs["pack_positions"]),
                 self._dev(bufs["pack_seq"]),
-                self._dev(bufs["last_index"]), tables,
+                self._dev(bufs["last_index"]),
                 span_starts=self._dev(bufs["positions"]),
-                n_valid=int(bufs["n_valid"][0]))
+                n_valid=int(bufs["n_valid"][0]), **place)
         else:
             out = stage.decode_fn(stage.params, self.cache, x_in,
-                                  self._dev(bufs["positions"]), tables)
+                                  self._dev(bufs["positions"]), **place)
         out = out.float().cpu().numpy()          # waits for the device
         self.metrics.busy.append((t0, time.monotonic()))
         if stage.is_last:
@@ -392,19 +429,23 @@ class _StageWorker:
         return True
 
     def run_prefill(self, x_or_tokens: torch.Tensor, pos0: int,
-                    last_idx: np.ndarray, tables: np.ndarray) -> np.ndarray:
+                    last_idx: np.ndarray, place: np.ndarray) -> np.ndarray:
         """Pipeline prefill pass for newly admitted sequences: runs the
         stage on the right-padded batch and writes the prompts' K/V into
-        the paged cache in place, block by block through ``tables``
-        ([B, nb], from ``padded_tables(mask_shared=True)``).  Slots past a
-        row's table (the ragged pad tail) and blocks shared through a
-        prefix hit land in the trash block."""
+        the cache in place.  Paged: block by block through ``place``, the
+        tables [B, nb] from ``padded_tables(mask_shared=True)``; slots past
+        a row's table (the ragged pad tail) and blocks shared through a
+        prefix hit land in the trash block.  Contiguous: into the cache
+        rows ``place`` [B], slots [0, S_prompt) (a rolling row: all W)."""
         stage, eng = self.stage, self.engine
         t0 = time.monotonic()
         out, cache = stage.prefill_fn(stage.params, x_or_tokens, pos0,
                                       self._dev(last_idx))
-        write_prefill(self.cache, cache, self._dev(tables),
-                      eng.kv_manager.pad_block)
+        if eng.paged:
+            write_prefill(self.cache, cache, self._dev(place),
+                          eng.kv_manager.pad_block)
+        else:
+            write_prefill_rows(self.cache, cache, self._dev(place))
         out = out.float().cpu().numpy()          # waits for the device
         self.metrics.busy.append((t0, time.monotonic()))
         return out
@@ -438,39 +479,48 @@ class PPEngineBase:
             raise ValueError(f"kv_block_size must be >= 1, "
                              f"got {cfg.kv_block_size}")
         window = self.arch.window or None
-        if cfg.kv_layout == "auto" and window and window % cfg.kv_block_size:
-            # the reference falls back to contiguous rows here; a rolling
-            # cache needs whole-block windows (explicit kv_layout='paged'
-            # raises in BlockSpaceManager instead)
-            cfg = dataclasses.replace(cfg, kv_layout="contiguous")
-        if cfg.kv_layout == "contiguous":
-            raise NotImplementedError(f"the contiguous KV layout {_NOT_PORTED}")
-        cfg = dataclasses.replace(cfg, kv_layout="paged")
+        if cfg.kv_layout == "auto":
+            # paged, except that rolling caches need whole-block windows:
+            # the reference falls back to contiguous rows there (explicit
+            # kv_layout='paged' raises in BlockSpaceManager instead)
+            cfg = dataclasses.replace(cfg, kv_layout="contiguous" if (
+                window and window % cfg.kv_block_size) else "paged")
         self.cfg = cfg
-        n_blocks = cfg.kv_blocks
-        if n_blocks is None:
-            # equal budget to contiguous rows: rows x the blocks ONE
-            # worst-case sequence needs (a window's worth for rolling
-            # caches)
-            n_blocks = (cfg.max_batch * cfg.pp_degree *
-                        -(-(window or cfg.max_seq_len) // cfg.kv_block_size))
-        self.kv_manager = BlockSpaceManager(
-            n_blocks, cfg.kv_block_size, slot_cap=window,
-            max_slots=cfg.max_seq_len,
-            max_table_buckets=cfg.max_table_buckets,
-            # rolling caches index slots by pos % window, so a block's
-            # content is position-dependent: not shareable
-            prefix_cache=cfg.enable_prefix_caching and window is None)
-        if n_blocks < self.kv_manager.blocks_for(cfg.max_seq_len):
-            raise ValueError(
-                f"kv_blocks={n_blocks} x block_size={cfg.kv_block_size}"
-                " cannot hold even one max_seq_len sequence — "
-                "preemption could never free enough")
+        self.paged = cfg.kv_layout == "paged"
+        self.kv_manager = None
+        if self.paged:
+            n_blocks = cfg.kv_blocks
+            if n_blocks is None:
+                # equal budget to contiguous rows: rows x the blocks ONE
+                # worst-case sequence needs (a window's worth for rolling
+                # caches)
+                n_blocks = (cfg.max_batch * cfg.pp_degree *
+                            -(-(window or cfg.max_seq_len)
+                              // cfg.kv_block_size))
+            self.kv_manager = BlockSpaceManager(
+                n_blocks, cfg.kv_block_size, slot_cap=window,
+                max_slots=cfg.max_seq_len,
+                max_table_buckets=cfg.max_table_buckets,
+                # rolling caches index slots by pos % window, so a block's
+                # content is position-dependent: not shareable
+                prefix_cache=cfg.enable_prefix_caching and window is None)
+            if n_blocks < self.kv_manager.blocks_for(cfg.max_seq_len):
+                raise ValueError(
+                    f"kv_blocks={n_blocks} x block_size={cfg.kv_block_size}"
+                    " cannot hold even one max_seq_len sequence — "
+                    "preemption could never free enough")
         # the id allocator doubles as the scheduler's fork-child id source
         # (SamplingParams.n > 1): child seq ids draw from the same
         # monotonic space as request ids, so they can never collide with
         # a future request's worker-side state
         self._alloc = RequestIdAllocator()
+        if cfg.decode_enlarge_factor > 1 and not self.paged:
+            # enlargement admits offline members beyond max_batch whose
+            # eviction must free KV capacity on demand — only the paged
+            # layout's preemption-by-recompute supports that (contiguous
+            # SequenceCache rows leak on drop_entry)
+            raise ValueError(
+                "decode_enlarge_factor > 1 requires the paged KV layout")
         self.scheduler = Scheduler(max_batch=cfg.max_batch, pp_degree=cfg.pp_degree,
                                    max_seq_len=cfg.max_seq_len,
                                    token_budget=cfg.prefill_chunk_tokens,
@@ -659,6 +709,17 @@ class PPEngineBase:
         outside the engine (e.g. behind a long blocking step)."""
         if params.n < 1:
             raise ValueError(f"SamplingParams.n must be >= 1, got {params.n}")
+        if params.n > 1 and not self.paged:
+            raise ValueError(
+                "SamplingParams.n > 1 (parallel sampling) forks the prompt "
+                "KV copy-on-write, which requires kv_layout='paged'")
+        if params.tier == "offline" and not self.paged:
+            # offline sequences are preempted-by-recompute the moment
+            # online traffic needs their seats; contiguous SequenceCache
+            # rows have no recompute path (drop_entry leaks the row)
+            raise ValueError(
+                "tier='offline' (hybrid serving, docs/hybrid.md) relies on "
+                "preemption-by-recompute, which requires kv_layout='paged'")
         rid = self._alloc.next()
         seq = Sequence(rid, list(prompt_ids), params,
                        arrival_t=arrival_t or 0.0)
@@ -774,14 +835,16 @@ class PPEngineBase:
         if not new:
             return
         seqs = [self.scheduler.seqs[s] for s in new]
-        for s in seqs:
-            self.seq_cache.admit(s.seq_id, len(s.prompt_ids))
+        rows = np.array([self.seq_cache.admit(s.seq_id,
+                                              len(s.prompt_ids)).cache_row
+                         for s in seqs], np.int32)
         # mask_shared: the monolithic prefill recomputes the WHOLE prompt
         # (prefill_fn cannot resume mid-prompt from cache), so a
         # prefix-cache hit's shared blocks — and any fork-shared block —
         # are write-masked to the trash block; the recomputed values are
         # identical to the cached ones, only the write is suppressed
-        tables = self.kv_manager.padded_tables(new, mask_shared=True)
+        place = (self.kv_manager.padded_tables(new, mask_shared=True)
+                 if self.paged else rows)
         max_len = max(s.length for s in seqs)
         toks = np.zeros((len(seqs), max_len), np.int32)
         for i, s in enumerate(seqs):
@@ -790,7 +853,7 @@ class PPEngineBase:
         last_idx = np.array([s.length - 1 for s in seqs], np.int32)
         x = torch.tensor(toks, device=self.device)
         for w in self.stages:
-            x_np = w.run_prefill(x, 0, last_idx, tables)
+            x_np = w.run_prefill(x, 0, last_idx, place)
             if not w.stage.is_last:
                 # inter-stage hidden, in the stages' dtype
                 x = torch.tensor(x_np, dtype=self.dtype, device=self.device)
@@ -801,7 +864,8 @@ class PPEngineBase:
                                 [s.params for s in seqs])
         # same-thread with the admitting schedule call: epochs are current
         finished = self.scheduler.complete(
-            sched.iteration, new, ids, [s.preemptions for s in seqs])
+            sched.iteration, new, ids,
+            [s.preemptions for s in seqs] if self.paged else None)
         for sid in finished:
             self.seq_cache.release(sid)
         for sid in new:
@@ -1139,21 +1203,22 @@ class PPEngineBase:
             "policy": self.scheduler.policy.name,
             "kv_layout": self.cfg.kv_layout,
         }
-        out["kv_block_size"] = self.cfg.kv_block_size
-        out["kv_blocks_total"] = self.kv_manager.n_blocks
-        # "free" counts reclaimable capacity: the free list PLUS
-        # cached prefix blocks held only by their pin (admission and
-        # growth evict those on demand) — so an idle engine with a
-        # warm prefix cache still reports blocks_free == blocks_total
-        cached = self.kv_manager.reclaimable_cached_blocks
-        out["kv_blocks_free"] = self.kv_manager.free_blocks + cached
-        out["kv_blocks_cached"] = cached
-        out["kv_preemptions"] = self.scheduler.n_preemptions
-        out["kv_fork_children"] = self.scheduler.n_forks
-        out["kv_fork_demotions"] = self.scheduler.n_fork_demotions
-        out["kv_table_widths"] = self.kv_manager.table_widths
-        for k, v in self.kv_manager.prefix_stats().items():
-            out[f"kv_{k}"] = v
+        if self.paged:
+            out["kv_block_size"] = self.cfg.kv_block_size
+            out["kv_blocks_total"] = self.kv_manager.n_blocks
+            # "free" counts reclaimable capacity: the free list PLUS
+            # cached prefix blocks held only by their pin (admission and
+            # growth evict those on demand) — so an idle engine with a
+            # warm prefix cache still reports blocks_free == blocks_total
+            cached = self.kv_manager.reclaimable_cached_blocks
+            out["kv_blocks_free"] = self.kv_manager.free_blocks + cached
+            out["kv_blocks_cached"] = cached
+            out["kv_preemptions"] = self.scheduler.n_preemptions
+            out["kv_fork_children"] = self.scheduler.n_forks
+            out["kv_fork_demotions"] = self.scheduler.n_fork_demotions
+            out["kv_table_widths"] = self.kv_manager.table_widths
+            for k, v in self.kv_manager.prefix_stats().items():
+                out[f"kv_{k}"] = v
         for k, v in self.scheduler.policy.metrics().items():
             out[f"policy_{k}"] = v
         return out

@@ -13,6 +13,12 @@
 // 0..min(positions[b] + 1, W) - 1.  The new token's K/V is already in
 // its slot; every visible slot is valid, so the kernel is the full-cache
 // one over a shorter slot range.
+//
+// Contiguous mode (contiguous_decode_attention; the contiguous KV layout):
+// the TPU kernel's own layout, row rows[b] of [R, S, Kv, hd] caches over
+// lengths = positions[b] + 1 slots (rolling: min(positions[b] + 1, W)),
+// through paged::RowSlots instead of the table: the reference runs the
+// jnp decode_attention on its cache rows there (transformer.py:145-167).
 // Body, bound and design: paged_attention.cuh.  Split-K over long
 // caches is left for later (B * Kv blocks must fill the 132 SMs alone).
 #include "paged_attention.cuh"
@@ -51,5 +57,46 @@ extern "C" int paged_decode_attention(const void* q, const void* k_cache,
       (const __nv_bfloat16*)v_cache, (const int*)tables,
       (const int*)positions, (__nv_bfloat16*)out, H, Kv, hd, bs, nb, n_blocks,
       tile, window, scale);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(paged::kThreads)
+contiguous_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k_cache,
+                                   const __nv_bfloat16* __restrict__ v_cache,
+                                   const int* __restrict__ rows,
+                                   const int* __restrict__ positions,
+                                   __nv_bfloat16* __restrict__ out, int H,
+                                   int Kv, int hd, int R, int S, int tile,
+                                   int window, float scale) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int row = rows[b], pos = positions[b];
+  assert(row >= 0 && row < R && pos >= 0);  // a corrupt batch fails loudly
+  const int n = window ? min(pos + 1, window) : pos + 1;
+  paged::attend_source(q + (size_t)b * H * hd,
+                       paged::RowSlots{k_cache, v_cache, row, S, Kv, kh, hd},
+                       min(n, S), kh, H / Kv, hd, tile, scale,
+                       out + (size_t)b * H * hd);
+}
+
+// q [B, H, hd] bf16; caches [R, S, Kv, hd] bf16; rows/positions [B]
+// int32; out [B, H*hd] bf16.
+extern "C" int contiguous_decode_attention(const void* q, const void* k_cache,
+                                           const void* v_cache,
+                                           const void* rows,
+                                           const void* positions, void* out,
+                                           int B, int H, int Kv, int hd,
+                                           int R, int S, int tile, int window,
+                                           float scale, void* stream) {
+  if (B == 0) return 0;
+  const size_t smem = sizeof(float) * paged::smem_floats(H / Kv, hd, tile);
+  cudaError_t err =
+      paged::prepare_smem(contiguous_decode_attention_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  contiguous_decode_attention_kernel<<<dim3(B, Kv), paged::kThreads, smem,
+                                       (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
+      (const __nv_bfloat16*)v_cache, (const int*)rows, (const int*)positions,
+      (__nv_bfloat16*)out, H, Kv, hd, R, S, tile, window, scale);
   return (int)cudaGetLastError();
 }

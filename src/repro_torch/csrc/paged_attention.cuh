@@ -1,6 +1,6 @@
-// Shared body of the port's bf16 paged attention kernels
-// (paged_span_attention.cu, decode_attention.cu,
-// paged_span_attention_rolling.cu).
+// Shared body of the port's bf16 attention kernels, paged and contiguous
+// (paged_span_attention.cu, paged_span_attention_rolling.cu,
+// span_attention.cu, span_attention_rolling.cu, decode_attention.cu).
 //
 // One thread block computes the attention of ONE query token for the g
 // query heads that share ONE kv head.  It folds one or more sources of
@@ -14,14 +14,20 @@
 //   PagedSlots    slots 0..n-1 of the token's block-table row, all valid
 //                 (full cache: n = pos + 1; rolling decode: n =
 //                 min(pos + 1, W));
-//   RollingSlots  the old rolling cache of a windowed span: slots
-//                 0..min(off, nb * bs)-1 of the row, where slot s stores
-//                 position off-1-((off-1-s) mod nb*bs), valid iff inside
+//   RowSlots      the same slots of one row of a contiguous [R, S, Kv, hd]
+//                 cache (the contiguous KV layout): slot s of row r sits
+//                 at ((r * S + s) * Kv + kh) * hd;
+//   Rolling<...>  the old rolling cache of a windowed span, over either:
+//                 slots 0..min(off, w_slots)-1 of the row (w_slots = nb *
+//                 bs of the table, or S of a row), where slot s stores
+//                 position off-1-((off-1-s) mod w_slots), valid iff inside
 //                 the token's window;
 //   FreshSpan     the span's own K/V [T, Kv, hd]: entry u is valid iff it
 //                 is of the same row, at or before the token, inside its
 //                 window, and not bucket padding (u < n_valid).
 //
+// The paged and contiguous kernels differ only in the source's address
+// computation; with the same tile order their outputs are identical.
 // Slots past n are never read, so table entries past a row's prefix (the
 // trash block) are never touched.
 //
@@ -121,16 +127,31 @@ struct PagedSlots {
   __device__ bool valid(int) const { return true; }
 };
 
+// Slots 0..n-1 of row `row` of a contiguous [R, S, Kv, hd] cache.
+struct RowSlots {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  int row, S, Kv, kh, hd;
+  __device__ size_t offset(int s) const {
+    return (((size_t)row * S + s) * Kv + kh) * hd;
+  }
+  __device__ bool valid(int) const { return true; }
+};
+
 // The old rolling cache of a windowed span token at position `pos`, whose
 // row holds positions [0, off): slot s (s < min(off, w_slots)) stores
-// off-1-((off-1-s) mod w_slots), w_slots = nb * bs of the table.
-struct RollingSlots : PagedSlots {
+// off-1-((off-1-s) mod w_slots), w_slots = nb * bs of the table (paged)
+// or S (a contiguous row).
+template <typename Slots>
+struct Rolling : Slots {
   int off, pos, window, w_slots;
   __device__ bool valid(int s) const {
     const int stored = off - 1 - (off - 1 - s) % w_slots;
     return stored > pos - window;
   }
 };
+using RollingSlots = Rolling<PagedSlots>;
+using RowRollingSlots = Rolling<RowSlots>;
 
 // The span's own fresh K/V [T, Kv, hd], for the token of row `row` at
 // position `pos`.
@@ -222,6 +243,24 @@ __device__ inline void finish(__nv_bfloat16* __restrict__ out, int g, int hd,
     out[i] = __float2bfloat16(s.acc[i] / fmaxf(s.l[i / hd], 1e-30f));
 }
 
+// One token (q, out: its [H*hd] rows) over slots 0..n-1 of `src`, for
+// the g query heads of kv head kh.
+template <typename Src>
+__device__ inline void attend_source(const __nv_bfloat16* __restrict__ q,
+                                     const Src& src, int n, int kh, int g,
+                                     int hd, int tile, float scale,
+                                     __nv_bfloat16* __restrict__ out) {
+  // (named apart from the int8 kernels' byte-typed dynamic shared memory:
+  // one translation unit may hold both, and extern declarations of one
+  // name must agree in type)
+  extern __shared__ float attend_smem[];
+  const State s = carve(attend_smem, g, hd, tile);
+  const int head0 = kh * g;  // first query head of this kv head's group
+  init(q + head0 * hd, g, hd, s);
+  fold(src, n, g, hd, tile, scale, s);
+  finish(out + head0 * hd, g, hd, s);
+}
+
 // One token over slots 0..n_slots-1 of its table row (n_slots <= nb * bs):
 // q, out its [H*hd] rows; table [nb]; caches [n_blocks, bs, Kv, hd].
 __device__ inline void attend(const __nv_bfloat16* __restrict__ q,
@@ -231,18 +270,10 @@ __device__ inline void attend(const __nv_bfloat16* __restrict__ q,
                               int kh, int Kv, int g, int hd, int bs,
                               int n_blocks, int tile, float scale,
                               __nv_bfloat16* __restrict__ out) {
-  // (named apart from the int8 kernels' byte-typed dynamic shared memory:
-  // one translation unit may hold both, and extern declarations of one
-  // name must agree in type)
-  extern __shared__ float attend_smem[];
-  const State s = carve(attend_smem, g, hd, tile);
-  const int head0 = kh * g;  // first query head of this kv head's group
-  init(q + head0 * hd, g, hd, s);
   // a corrupt table fails loudly rather than reading out of the pool
   check_table(table, n_slots, bs, n_blocks);
-  fold(PagedSlots{k_cache, v_cache, table, bs, Kv, kh, hd}, n_slots, g, hd,
-       tile, scale, s);
-  finish(out + head0 * hd, g, hd, s);
+  attend_source(q, PagedSlots{k_cache, v_cache, table, bs, Kv, kh, hd},
+                n_slots, kh, g, hd, tile, scale, out);
 }
 
 // Launch-side shared-memory setup: above 48 KB a kernel must opt in.

@@ -1,7 +1,12 @@
-"""Input checks and launch geometry shared by the paged attention kernels
-(``span_attention``, ``decode_attention``); see
+"""Input checks and launch geometry shared by the attention kernels
+(``span_attention``, ``decode_attention``), paged and contiguous; see
 ``csrc/paged_attention.cuh`` and ``csrc/paged_attention_quant.cuh`` for
-the kernels' common bodies."""
+the kernels' common bodies.
+
+Two cache layouts: paged, [n_blocks, bs, Kv, hd] leaves read through
+[B, nb] int32 block tables; and contiguous rows, [R, S, Kv, hd] leaves
+indexed by an int32 row per token or per decode row (``block_tables``
+None below).  int8 scales drop the last axis."""
 from __future__ import annotations
 
 import threading
@@ -11,24 +16,26 @@ import torch
 TILE = 64                   # KV slots staged in shared memory per step
 
 
-def _check_shapes(q: torch.Tensor, cache_shape, block_tables: torch.Tensor,
+def _check_shapes(q: torch.Tensor, cache_shape, block_tables,
                   index_vectors) -> None:
+    layout = ("[R, S, Kv, hd]" if block_tables is None
+              else "[n_blocks, bs, Kv, hd]")
     if q.dim() != 3 or len(cache_shape) != 4:
-        raise ValueError(f"q must be [N, H, hd] and the caches "
-                         f"[n_blocks, bs, Kv, hd]; got {tuple(q.shape)} "
-                         f"and {tuple(cache_shape)}")
+        raise ValueError(f"q must be [N, H, hd] and the caches {layout}; "
+                         f"got {tuple(q.shape)} and {tuple(cache_shape)}")
     n, h, hd = q.shape
     kv = cache_shape[2]
     if cache_shape[3] != hd or h % kv:
         raise ValueError(f"q heads/width {h}x{hd} do not fit cache kv "
                          f"heads/width {kv}x{cache_shape[3]}")
-    if block_tables.dim() != 2:
+    if block_tables is not None and block_tables.dim() != 2:
         raise ValueError(f"block_tables must be [B, nb], got "
                          f"{tuple(block_tables.shape)}")
     for name, v in index_vectors.items():
         if v.shape != (n,):
             raise ValueError(f"{name} must be [{n}], got {tuple(v.shape)}")
-    for name, v in (("block_tables", block_tables), *index_vectors.items()):
+    tables = {} if block_tables is None else {"block_tables": block_tables}
+    for name, v in (*tables.items(), *index_vectors.items()):
         if v.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {v.dtype}")
 
@@ -52,10 +59,11 @@ def _check_devices(q: torch.Tensor, tensors) -> None:
 
 
 def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-          block_tables: torch.Tensor, index_vectors) -> None:
-    """Validate a paged attention call: q [N, H, hd]; caches
-    [n_blocks, bs, Kv, hd]; tables [B, nb] int32; each index vector [N]
-    int32; everything on one device.  Raises ValueError/TypeError."""
+          block_tables, index_vectors) -> None:
+    """Validate an attention call: q [N, H, hd]; caches [n_blocks, bs, Kv,
+    hd] with tables [B, nb] int32, or rows [R, S, Kv, hd] with
+    ``block_tables`` None; each index vector [N] int32; everything on one
+    device.  Raises ValueError/TypeError."""
     if v_cache.shape != k_cache.shape:
         raise ValueError(f"k/v cache shapes differ: {tuple(k_cache.shape)} "
                          f"vs {tuple(v_cache.shape)}")
@@ -63,18 +71,18 @@ def check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_cache.dtype}, "
                         f"{v_cache.dtype}")
-    _check_devices(q, [q, k_cache, v_cache, block_tables,
+    _check_devices(q, [q, k_cache, v_cache, *_tables(block_tables),
                        *index_vectors.values()])
 
 
 def check_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
                 v8: torch.Tensor, vs: torch.Tensor,
-                block_tables: torch.Tensor, index_vectors) -> None:
-    """Validate a paged int8 attention call: q [N, H, hd] (bf16; fp32 too
-    on the CPU); k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs [n_blocks, bs,
-    Kv] bf16; tables and index vectors as in :func:`check`.  The CUDA
-    kernels read K 16 bytes at a time, so there hd must be a multiple of
-    16 and the int8 caches 16-byte aligned."""
+                block_tables, index_vectors) -> None:
+    """Validate an int8 attention call: q [N, H, hd] (bf16; fp32 too on
+    the CPU); k8/v8 [n_blocks, bs, Kv, hd] (or rows [R, S, Kv, hd]) int8;
+    ks/vs the same without hd, bf16; tables and index vectors as in
+    :func:`check`.  The CUDA kernels read K 16 bytes at a time, so there
+    hd must be a multiple of 16 and the int8 caches 16-byte aligned."""
     if v8.shape != k8.shape:
         raise ValueError(f"k/v cache shapes differ: {tuple(k8.shape)} "
                          f"vs {tuple(v8.shape)}")
@@ -87,7 +95,8 @@ def check_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
         if c.shape != k8.shape[:3]:
             raise ValueError(f"{name} must be {tuple(k8.shape[:3])}, got "
                              f"{tuple(c.shape)}")
-    tensors = [q, k8, ks, v8, vs, block_tables, *index_vectors.values()]
+    tensors = [q, k8, ks, v8, vs, *_tables(block_tables),
+               *index_vectors.values()]
     _check_devices(q, tensors)
     if q.device.type == "cuda":
         if q.shape[2] % 16:
@@ -96,6 +105,10 @@ def check_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
         if k8.data_ptr() % 16 or v8.data_ptr() % 16:
             raise ValueError("the CUDA kernel needs 16-byte aligned int8 "
                              "caches")
+
+
+def _tables(block_tables) -> list:
+    return [] if block_tables is None else [block_tables]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

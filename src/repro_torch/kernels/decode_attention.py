@@ -1,5 +1,5 @@
-"""Paged single-token (decode) attention, over a bf16 cache and over the
-int8 cache.
+"""Single-token (decode) attention, over a bf16 cache and over the int8
+cache, paged or in contiguous rows.
 
 CUDA kernels:
 
@@ -20,7 +20,18 @@ wrappers, :func:`paged_decode_attention_rolling` and
 :func:`paged_decode_attention_quant_rolling`, count their launches apart
 from the full-cache ones.
 
-Both are memory-bound: the least they must move is each row's K/V
+Both also have a contiguous mode (the contiguous KV layout: caches
+[R, S, Kv, hd], decode row b reading cache row ``rows[b]``), the Pallas
+``decode_attention``'s own layout with lengths = positions + 1, over
+the same bodies (``csrc/paged_attention.cuh``'s ``RowSlots``, the int8
+kernel's ``RowIndex``): :func:`contiguous_decode_attention`,
+:func:`contiguous_decode_attention_rolling`,
+:func:`contiguous_decode_attention_quant` and
+:func:`contiguous_decode_attention_quant_rolling`, each counting its own
+launches.  The reference runs the jnp ``decode_attention{,_quant}`` on
+its cache rows there (repro/models/transformer.py:145-167).
+
+All are memory-bound: the least they must move is each row's K/V
 prefix (or window) once, plus q and the output.
 
 Plain versions: :func:`paged_decode_attention_plain`, the reference's
@@ -28,7 +39,10 @@ paged decode (``attention.decode_attention`` over ``gather_paged_cache``,
 repro/models/transformer.py:140-143): scores in the input dtype, softmax
 in fp32, probabilities cast back; and
 :func:`paged_decode_attention_quant_plain`, ``decode_attention_quant``
-over the gathered int8 view, as the reference computes it.
+over the gathered int8 view, as the reference computes it; the
+contiguous modes' plain versions are the same oracles on the batch's
+rows, :func:`contiguous_decode_attention_plain` and
+:func:`contiguous_decode_attention_quant_plain`.
 """
 from __future__ import annotations
 
@@ -189,3 +203,138 @@ def paged_decode_attention_quant_rolling(q: torch.Tensor, k8: torch.Tensor,
 
 paged_decode_attention_quant.launches = 0
 paged_decode_attention_quant_rolling.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Contiguous rows: caches [R, S, Kv, hd], rows [B] the cache row of each
+# decode row
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _rows_kernel():
+    return _build.load("decode_attention", "contiguous_decode_attention",
+                       [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _rows_quant_kernel():
+    return _build.load("decode_attention_quant",
+                       "contiguous_decode_attention_quant",
+                       [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P])
+
+
+def contiguous_decode_attention_plain(q, k_cache, v_cache, rows, positions,
+                                      *, rolling_window: int = 0):
+    """q [B, H, hd]; caches [R, S, Kv, hd]; rows/positions [B] ->
+    [B, H*hd]."""
+    r = rows.long()
+    return decode_attention(q, k_cache[r], v_cache[r], positions,
+                            rolling_window=rolling_window)
+
+
+def _rows_decode(wrapper, q, k_cache, v_cache, rows, positions, window):
+    _paged.check(q, k_cache, v_cache, None,
+                 {"rows": rows, "positions": positions})
+    if q.device.type == "cpu":
+        return contiguous_decode_attention_plain(
+            q, k_cache, v_cache, rows, positions, rolling_window=window)
+    b, h, hd = q.shape
+    r, s, kv = k_cache.shape[:3]
+    out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
+    rc = _rows_kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                        rows.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                        b, h, kv, hd, r, s, _paged.TILE, window, hd ** -0.5,
+                        _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    _paged.count_launch(wrapper)
+    return out
+
+
+def contiguous_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, rows: torch.Tensor,
+                                positions: torch.Tensor) -> torch.Tensor:
+    """Decode row b's new token attends to slots ``0..positions[b]`` of
+    cache row ``rows[b]``.  q [B, H, hd]; caches [R, S, Kv, hd];
+    rows/positions [B] int32 -> [B, H*hd].  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 only)."""
+    return _rows_decode(contiguous_decode_attention, q, k_cache, v_cache,
+                        rows, positions, 0)
+
+
+def contiguous_decode_attention_rolling(q: torch.Tensor,
+                                        k_cache: torch.Tensor,
+                                        v_cache: torch.Tensor,
+                                        rows: torch.Tensor,
+                                        positions: torch.Tensor, *,
+                                        window: int) -> torch.Tensor:
+    """:func:`contiguous_decode_attention` over rolling rows (slot = pos %
+    W): row b attends to slots ``0..min(positions[b] + 1, W) - 1``."""
+    _check_window(window)
+    return _rows_decode(contiguous_decode_attention_rolling, q, k_cache,
+                        v_cache, rows, positions, window)
+
+
+contiguous_decode_attention.launches = 0
+contiguous_decode_attention_rolling.launches = 0
+
+
+def contiguous_decode_attention_quant_plain(q, k8, ks, v8, vs, rows,
+                                            positions, *,
+                                            rolling_window: int = 0):
+    """q [B, H, hd]; k8/v8 [R, S, Kv, hd] int8; ks/vs [R, S, Kv] bf16;
+    rows/positions [B] -> [B, H*hd]."""
+    r = rows.long()
+    return decode_attention_quant(q, k8[r], ks[r], v8[r], vs[r], positions,
+                                  rolling_window=rolling_window)
+
+
+def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window):
+    _paged.check_quant(q, k8, ks, v8, vs, None,
+                       {"rows": rows, "positions": positions})
+    if q.device.type == "cpu":
+        return contiguous_decode_attention_quant_plain(
+            q, k8, ks, v8, vs, rows, positions, rolling_window=window)
+    b, h, hd = q.shape
+    r, s, kv = k8.shape[:3]
+    out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
+    # the scores, then the quantized probabilities, of each (row, head)
+    scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rc = _rows_quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                              v8.data_ptr(), vs.data_ptr(), rows.data_ptr(),
+                              positions.data_ptr(), scratch.data_ptr(),
+                              out.data_ptr(), b, h, kv, hd, r, s, window,
+                              hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    _paged.count_launch(wrapper)
+    return out
+
+
+def contiguous_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                                      ks: torch.Tensor, v8: torch.Tensor,
+                                      vs: torch.Tensor, rows: torch.Tensor,
+                                      positions: torch.Tensor) -> torch.Tensor:
+    """:func:`contiguous_decode_attention` over int8 rows (k8/v8 int8
+    [R, S, Kv, hd] with bf16 scales ks/vs [R, S, Kv]).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16 q, hd a
+    multiple of 16)."""
+    return _rows_decode_quant(contiguous_decode_attention_quant, q, k8, ks,
+                              v8, vs, rows, positions, 0)
+
+
+def contiguous_decode_attention_quant_rolling(
+        q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+        v8: torch.Tensor, vs: torch.Tensor, rows: torch.Tensor,
+        positions: torch.Tensor, *, window: int) -> torch.Tensor:
+    """:func:`contiguous_decode_attention_quant` over rolling int8 rows:
+    row b attends to slots ``0..min(positions[b] + 1, W) - 1``."""
+    _check_window(window)
+    return _rows_decode_quant(contiguous_decode_attention_quant_rolling, q,
+                              k8, ks, v8, vs, rows, positions, window)
+
+
+contiguous_decode_attention_quant.launches = 0
+contiguous_decode_attention_quant_rolling.launches = 0

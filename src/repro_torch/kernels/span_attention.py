@@ -1,7 +1,7 @@
-"""Paged packed span attention (the chunked-prefill step's attention),
-over a bf16 cache and over the int8 cache.
+"""Packed span attention (the chunked-prefill step's attention), over
+a bf16 cache and over the int8 cache, paged or in contiguous rows.
 
-CUDA kernels:
+CUDA kernels, paged:
 
 - ``csrc/paged_span_attention.cu`` replaces the TPU kernel
   ``repro/kernels/span_attention.py:611`` (``paged_span_attention``).
@@ -24,7 +24,21 @@ CUDA kernels:
   rolling cache, with the int8 kernel's math on the old cache and
   full-precision dots on the fresh span.
 
-All four are memory-bound: the least they must move is each row's K/V
+CUDA kernels over contiguous rows (the contiguous KV layout: caches
+[R, S, Kv, hd], ``seq_idx`` the cache row of each token), the same
+bodies over another address computation:
+
+- ``csrc/span_attention.cu`` replaces ``repro/kernels/span_attention.py:132``
+  (``span_attention``);
+- ``csrc/span_attention_quant.cu`` replaces :239
+  (``span_attention_quant``); its p-quantization tile is ``kv_block``
+  halved until it divides S;
+- ``csrc/span_attention_rolling.cu`` replaces :519
+  (``span_attention_rolling``), rows exactly one window wide;
+- ``csrc/span_attention_rolling_quant.cu`` replaces :456
+  (``span_attention_rolling_quant``).
+
+All eight are memory-bound: the least they must move is each row's K/V
 prefix (or window) once, plus q, the fresh span and the output.
 
 Plain versions: :func:`paged_span_attention_plain`, the reference
@@ -34,7 +48,9 @@ paged_span_attention``) with its dtype casts, and
 :func:`paged_span_attention_rolling_plain` and
 :func:`paged_span_attention_rolling_quant_plain`, the reference engine's
 paths off the TPU (the ``attention.*_native`` functions, which read
-through the table tile by tile).
+through the table tile by tile); over rows, the reference's jnp
+oracles themselves (``packed_span_attention{,_quant,_rolling,
+_rolling_quant}``), which the Pallas kernels were held against.
 """
 from __future__ import annotations
 
@@ -46,7 +62,9 @@ import torch
 from repro_torch.kernels import _build, _paged
 from repro_torch.models.attention import (
     kv_tile, gather_paged_cache, packed_span_attention,
-    paged_span_attention_quant_native, paged_span_attention_rolling_native,
+    packed_span_attention_quant, packed_span_attention_rolling,
+    packed_span_attention_rolling_quant, paged_span_attention_quant_native,
+    paged_span_attention_rolling_native,
     paged_span_attention_rolling_quant_native)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -311,3 +329,185 @@ def paged_span_attention_rolling_quant(
 
 
 paged_span_attention_rolling_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Contiguous rows: caches [R, S, Kv, hd], seq_idx [T] the row of each token
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _rows_kernel():
+    return _build.load("span_attention", "span_attention",
+                       [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _rows_quant_kernel():
+    return _build.load("span_attention_quant", "span_attention_quant",
+                       [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _rows_rolling_kernel():
+    return _build.load("span_attention_rolling", "span_attention_rolling",
+                       [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
+
+
+@functools.cache
+def _rows_rolling_quant_kernel():
+    return _build.load("span_attention_rolling_quant",
+                       "span_attention_rolling_quant",
+                       [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P])
+
+
+def _launch(wrapper, kernel, q, ptrs, ints):
+    """Launch ``kernel`` on q's stream with the output [T, H*hd] after
+    ``ptrs`` and the scale after ``ints``; count the launch."""
+    t, h, hd = q.shape
+    out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
+    rc = kernel(*(x.data_ptr() for x in ptrs), out.data_ptr(), t, h, *ints,
+                hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
+                           f"{rc}")
+    _paged.count_launch(wrapper)
+    return out
+
+
+def span_attention_plain(q, k_cache, v_cache, positions, seq_idx, *,
+                         kv_block: int = 512):
+    """q [T, H, hd]; caches [R, S, Kv, hd]; positions/seq_idx [T] ->
+    [T, H*hd]."""
+    return packed_span_attention(q, k_cache, v_cache, positions, seq_idx,
+                                 kv_block=kv_block)
+
+
+def span_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, positions: torch.Tensor,
+                   seq_idx: torch.Tensor) -> torch.Tensor:
+    """Token t attends to slots ``0..positions[t]`` of cache row
+    ``seq_idx[t]``.  q [T, H, hd]; caches [R, S, Kv, hd];
+    positions/seq_idx [T] int32 -> [T, H*hd].  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 only)."""
+    _paged.check(q, k_cache, v_cache, None,
+                 {"positions": positions, "seq_idx": seq_idx})
+    if q.device.type == "cpu":
+        return span_attention_plain(q, k_cache, v_cache, positions, seq_idx)
+    r, s, kv = k_cache.shape[:3]
+    return _launch(span_attention, _rows_kernel(), q,
+                   (q, k_cache, v_cache, positions, seq_idx),
+                   (kv, q.shape[2], r, s, _paged.TILE))
+
+
+span_attention.launches = 0
+
+
+def span_attention_quant_plain(q, k8, ks, v8, vs, positions, seq_idx, *,
+                               kv_block: int = 512):
+    """q [T, H, hd]; k8/v8 [R, S, Kv, hd] int8; ks/vs [R, S, Kv] bf16;
+    positions/seq_idx [T] -> [T, H*hd]."""
+    return packed_span_attention_quant(q, k8, ks, v8, vs, positions,
+                                       seq_idx, kv_block=kv_block)
+
+
+def span_attention_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                         v8: torch.Tensor, vs: torch.Tensor,
+                         positions: torch.Tensor, seq_idx: torch.Tensor, *,
+                         kv_block: int = 512) -> torch.Tensor:
+    """:func:`span_attention` over int8 rows (k8/v8 int8 [R, S, Kv, hd]
+    with bf16 scales ks/vs [R, S, Kv]).  The probabilities are quantized
+    per tile of ``kv_block`` slots halved until it divides S (the Pallas
+    kernel's ``_pick_block``).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 q, hd a multiple of 16)."""
+    _paged.check_quant(q, k8, ks, v8, vs, None,
+                       {"positions": positions, "seq_idx": seq_idx})
+    if q.device.type == "cpu":
+        return span_attention_quant_plain(q, k8, ks, v8, vs, positions,
+                                          seq_idx, kv_block=kv_block)
+    r, s, kv = k8.shape[:3]
+    return _launch(span_attention_quant, _rows_quant_kernel(), q,
+                   (q, k8, ks, v8, vs, positions, seq_idx),
+                   (kv, q.shape[2], r, s, kv_tile(kv_block, s)))
+
+
+span_attention_quant.launches = 0
+
+
+def span_attention_rolling_plain(q, k_cache, v_cache, k_span, v_span,
+                                 positions, seq_idx, offsets, n_valid, *,
+                                 window: int, kv_block: int = 512):
+    """q [T, H, hd]; rolling caches [R, W, Kv, hd]; k_span/v_span
+    [T, Kv, hd]; positions/seq_idx/offsets [T]; n_valid an int ->
+    [T, H*hd]."""
+    return packed_span_attention_rolling(
+        q, k_cache, v_cache, k_span, v_span, positions, seq_idx, offsets,
+        n_valid, window=window, kv_block=kv_block)
+
+
+def span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, k_span: torch.Tensor,
+                           v_span: torch.Tensor, positions: torch.Tensor,
+                           seq_idx: torch.Tensor, offsets: torch.Tensor,
+                           n_valid: int, *, window: int) -> torch.Tensor:
+    """:func:`paged_span_attention_rolling` over contiguous rolling rows:
+    token t's row ``seq_idx[t]`` of [R, S, Kv, hd] caches holds positions
+    [0, ``offsets[t]``) at slots pos % S (S = W); the old row and the
+    span's own fresh K/V (same row, causal, inside the window, index <
+    ``n_valid``) are attended within ``window``.  The caches are read
+    only: the caller scatters the span afterwards.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (bf16 only)."""
+    _paged.check(q, k_cache, v_cache, None,
+                 {"positions": positions, "seq_idx": seq_idx})
+    _check_rolling(q, k_span, v_span, offsets, n_valid, window)
+    if q.device.type == "cpu":
+        return span_attention_rolling_plain(
+            q, k_cache, v_cache, k_span, v_span, positions, seq_idx, offsets,
+            n_valid, window=window)
+    r, s, kv = k_cache.shape[:3]
+    return _launch(span_attention_rolling, _rows_rolling_kernel(), q,
+                   (q, k_cache, v_cache, k_span, v_span, positions, seq_idx,
+                    offsets),
+                   (kv, q.shape[2], r, s, _paged.TILE, window, int(n_valid)))
+
+
+span_attention_rolling.launches = 0
+
+
+def span_attention_rolling_quant_plain(q, k8, ks, v8, vs, k_span, v_span,
+                                       positions, seq_idx, offsets, n_valid,
+                                       *, window: int, kv_block: int = 512):
+    """q [T, H, hd]; k8/v8 [R, W, Kv, hd] int8; ks/vs [R, W, Kv] bf16; the
+    rest as :func:`span_attention_rolling_plain` -> [T, H*hd]."""
+    return packed_span_attention_rolling_quant(
+        q, k8, ks, v8, vs, k_span, v_span, positions, seq_idx, offsets,
+        n_valid, window=window, kv_block=kv_block)
+
+
+def span_attention_rolling_quant(
+        q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+        v8: torch.Tensor, vs: torch.Tensor, k_span: torch.Tensor,
+        v_span: torch.Tensor, positions: torch.Tensor, seq_idx: torch.Tensor,
+        offsets: torch.Tensor, n_valid: int, *, window: int,
+        kv_block: int = 512) -> torch.Tensor:
+    """:func:`span_attention_rolling` over int8 rolling rows (k8/v8 int8
+    [R, S, Kv, hd] with bf16 scales ks/vs [R, S, Kv]); the fresh span K/V
+    stays bf16.  The old rows' probabilities are quantized per tile of
+    ``kv_block`` slots halved until it divides S.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (bf16 q, hd a multiple
+    of 16)."""
+    _paged.check_quant(q, k8, ks, v8, vs, None,
+                       {"positions": positions, "seq_idx": seq_idx})
+    _check_rolling(q, k_span, v_span, offsets, n_valid, window)
+    if q.device.type == "cpu":
+        return span_attention_rolling_quant_plain(
+            q, k8, ks, v8, vs, k_span, v_span, positions, seq_idx, offsets,
+            n_valid, window=window, kv_block=kv_block)
+    r, s, kv = k8.shape[:3]
+    return _launch(span_attention_rolling_quant, _rows_rolling_quant_kernel(),
+                   q, (q, k8, ks, v8, vs, k_span, v_span, positions, seq_idx,
+                       offsets),
+                   (kv, q.shape[2], r, s, kv_tile(kv_block, s), window,
+                    int(n_valid)))
+
+
+span_attention_rolling_quant.launches = 0

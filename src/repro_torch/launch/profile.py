@@ -8,8 +8,10 @@ at the shapes of ``chip_smoke.py``'s engine phase.  For the dense model:
 
 * the first stage's decode step (B = 4 rows, contexts of 300-600 tokens),
   chunk step (T = 256 packed tokens over 4 rows) and monolithic prefill
-  step (4 right-padded prompts, S = 397), and its decode and chunk steps
-  over the int8 KV cache: host time per step (wall clock around
+  step (4 right-padded prompts, S = 397), the same decode and chunk steps
+  over contiguous cache rows (8 rows of 640 slots, the batch's rows out of
+  order), and its decode and chunk steps over the int8 KV cache: host
+  time per step (wall clock around
   synchronised steps), device time (CUDA events), the device's busy
   share of the step and its kernels by device time (``torch.profiler``);
 * the last stage's decode step including the logits' copy to the host;
@@ -159,6 +161,17 @@ def profile_dense(args, dev, results):
            lambda: first.chunk_fn(first.params, caches[0], span, span_pos,
                                   span_seq, last_idx, tables),
            args.reps, results)
+    # the contiguous layout: the same steps over 8 rows of 640 slots
+    rows = model.row_cache(first.n_groups, 8, 640, device=dev)
+    batch_rows = i32([5, 2, 7, 0])
+    _piece("first stage decode step, contiguous rows (B=4)",
+           lambda: first.decode_fn(first.params, rows, tok, pos,
+                                   rows=batch_rows), args.reps, results)
+    _piece("first stage chunk step, contiguous rows (T=256)",
+           lambda: first.chunk_fn(first.params, rows, span, span_pos,
+                                  span_seq, last_idx, rows=batch_rows),
+           args.reps, results)
+    del rows
     prompts = i32(np.random.default_rng(args.seed).integers(
         2, cfg.vocab_size, (4, 397)))
     lens = i32([397, 260, 141, 78])

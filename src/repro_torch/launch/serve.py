@@ -13,6 +13,9 @@ holds (``chip_smoke.py`` serves it cut to 16 layers).  The engine runs on
 the card unless ``--device cpu`` is given.  Without
 ``--chunk-tokens`` the default policy prefills whole prompts
 (monolithic); ``--chunk-tokens 256`` selects chunked prefill.
+``--kv-layout contiguous`` serves over one cache row per sequence instead
+of the paged cache (``auto``, the default, takes the paged one unless a
+window is not a multiple of ``--block-size``).
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ from repro_torch.models.registry import build_model
 from repro_torch.runtime.data import ShareGPTLike
 
 POLICY_CHOICES = ["auto", "monolithic", "chunked", "disaggregated", "adaptive"]
+KV_LAYOUT_CHOICES = ["auto", "paged", "contiguous"]
 
 
 def run(arch: str, *, engine: str = "sipipe", pp: int = 2, requests: int = 8,
         max_batch: int = 4, max_new_tokens: int = 16, max_seq_len: int = 256,
-        chunk_tokens: int = 0, policy: str = "auto", block_size: int = 16,
-        kv_blocks: int = 0, seed: int = 0, device=None,
+        chunk_tokens: int = 0, policy: str = "auto", kv_layout: str = "auto",
+        block_size: int = 16, kv_blocks: int = 0, seed: int = 0, device=None,
         verbose: bool = True) -> dict:
     """Offline batch mode: enqueue every prompt, blocking run()."""
     dev = resolve_device(device)
@@ -42,7 +46,8 @@ def run(arch: str, *, engine: str = "sipipe", pp: int = 2, requests: int = 8,
     ecfg = EngineConfig(pp_degree=pp, max_batch=max_batch,
                         max_seq_len=max_seq_len,
                         prefill_chunk_tokens=chunk_tokens or None,
-                        scheduling_policy=policy, kv_block_size=block_size,
+                        scheduling_policy=policy, kv_layout=kv_layout,
+                        kv_block_size=block_size,
                         kv_blocks=kv_blocks or None, seed=seed)
     eng = (SiPipeEngine if engine == "sipipe" else NaivePPEngine)(
         model, params, ecfg)
@@ -87,6 +92,10 @@ def main():
     ap.add_argument("--policy", default="auto", choices=POLICY_CHOICES,
                     help="scheduling policy; 'auto' maps a token budget to "
                          "chunked")
+    ap.add_argument("--kv-layout", default="auto", choices=KV_LAYOUT_CHOICES,
+                    help="KV cache layout: paged block tables or one "
+                         "contiguous row per sequence ('auto': paged "
+                         "unless a window is not a block multiple)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV slots per physical block")
     ap.add_argument("--kv-blocks", type=int, default=0,
@@ -100,7 +109,7 @@ def main():
     run(args.arch, engine=args.engine, pp=args.pp, requests=args.requests,
         max_batch=args.max_batch, max_new_tokens=args.max_new_tokens,
         chunk_tokens=args.chunk_tokens, policy=args.policy,
-        block_size=args.block_size, kv_blocks=args.kv_blocks,
+        kv_layout=args.kv_layout, block_size=args.block_size, kv_blocks=args.kv_blocks,
         seed=args.seed, device=args.device)
 
 

@@ -111,6 +111,20 @@ class Model:
                            lambda shape, dt: torch.zeros(shape, dtype=dt,
                                                          device=device))
 
+    def row_cache(self, n_groups: int, rows: int, seq: int, device=None,
+                  dtype=torch.bfloat16, quant: Optional[bool] = None) -> PyTree:
+        """Zeroed contiguous KV cache of ``n_groups`` layer groups (the
+        contiguous layout's rows; the reference's ``init_cache(rows,
+        max_seq_len)``): leaves [groups, rows, S, Kv, hd] (scales [groups,
+        rows, S, Kv]), S = ``seq``, or W for a windowed model, whose rows
+        are rolling (slot = position % W) whatever ``seq``.  Device, dtype
+        and ``quant`` as :meth:`paged_cache`."""
+        device = resolve_device(device)
+        slots = self.cfg.window or seq
+        return self._cache((n_groups, rows, slots), dtype, quant,
+                           lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                         device=device))
+
     def prefill_cache(self, n_groups: int, batch: int, seq: int, device,
                       dtype=torch.bfloat16) -> PyTree:
         """Uninitialized per-prompt cache that prefill mode fills:
@@ -154,13 +168,14 @@ def build_model(cfg: ArchConfig,
                  span_starts: Optional[torch.Tensor] = None,
                  n_valid: Optional[int] = None,
                  seq_lens: Optional[torch.Tensor] = None,
-                 block_tables: Optional[torch.Tensor] = None) -> Ctx:
+                 block_tables: Optional[torch.Tensor] = None,
+                 rows: Optional[torch.Tensor] = None) -> Ctx:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         return Ctx(mode=mode, positions=positions, rope_cos=cos,
                    rope_sin=sin, seq_idx=seq_idx, span_starts=span_starts,
                    n_valid=n_valid, seq_lens=seq_lens,
-                   block_tables=block_tables, kv_block=options.kv_block,
-                   kv_quant=options.kv_quant)
+                   block_tables=block_tables, rows=rows,
+                   kv_block=options.kv_block, kv_quant=options.kv_quant)
 
     def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
@@ -186,8 +201,10 @@ def build_model(cfg: ArchConfig,
 
     def decode(params, cache, batch):
         """batch: ``token`` [B], ``positions`` [B] int32 and
-        ``block_tables`` [B, nb] int32; ``cache`` as :meth:`Model.
-        paged_cache` for all layers, updated in place."""
+        ``block_tables`` [B, nb] int32, with ``cache`` as :meth:`Model.
+        paged_cache`, or None, with ``cache`` the batch's B rows as
+        :meth:`Model.row_cache` makes them; all layers, updated in
+        place."""
         x = embed_tokens(params, batch["token"])
         ctx = make_ctx("decode", batch["positions"],
                        block_tables=batch["block_tables"])

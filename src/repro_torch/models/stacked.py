@@ -39,6 +39,10 @@ class Ctx:
     # block-major [n_blocks, block_size, ...] and attention reads and
     # writes through the table
     block_tables: Optional[torch.Tensor] = None
+    # contiguous KV layout (block_tables None): the cache row of each batch
+    # row [B] int32 in the [R, S, ...] leaves, read and written in place
+    # (None: the cache holds exactly the batch's rows, in order)
+    rows: Optional[torch.Tensor] = None
     # prefill attention's kv tile (its plain version's; ModelOptions)
     kv_block: int = 512
     # int8 KV cache: {k, v} int8 with bf16 scales {ks, vs}

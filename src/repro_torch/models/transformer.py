@@ -1,9 +1,10 @@
-"""Decoder blocks: self-attention over a paged KV cache + SwiGLU or a
-sparse MoE FFN.
+"""Decoder blocks: self-attention over a paged or contiguous KV cache +
+SwiGLU or a sparse MoE FFN.
 
 Ports ``repro.models.transformer`` for the ``dense`` and ``moe`` families
-in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout,
-over a bf16 (or, for parity runs, fp32) cache or the int8 cache
+in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout
+and with contiguous rows, over a bf16 (or, for parity runs, fp32) cache
+or the int8 cache
 (``kv_quant``), with full attention or a sliding window over a rolling
 cache (slot = position % W).  Attention runs through the hand-written
 kernels (``repro_torch.kernels``); the projections, the MLP and the
@@ -18,12 +19,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_quant,
-    paged_decode_attention_quant_rolling, paged_decode_attention_rolling)
+    contiguous_decode_attention, contiguous_decode_attention_quant,
+    contiguous_decode_attention_quant_rolling,
+    contiguous_decode_attention_rolling, paged_decode_attention,
+    paged_decode_attention_quant, paged_decode_attention_quant_rolling,
+    paged_decode_attention_rolling)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.span_attention import (
     paged_span_attention, paged_span_attention_quant,
-    paged_span_attention_rolling, paged_span_attention_rolling_quant)
+    paged_span_attention_rolling, paged_span_attention_rolling_quant,
+    span_attention, span_attention_quant, span_attention_rolling,
+    span_attention_rolling_quant)
 from repro_torch.models.attention import (fill_rolling_cache,
                                           fill_rolling_cache_ragged,
                                           quantize_kv)
@@ -83,15 +89,16 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
     written), positions/seq_idx [T]; ``ctx.n_valid`` the unpadded count
     (None: no padding), and a windowed model also takes
     ``ctx.span_starts`` [B].
-    In decode and chunk modes the paged cache ([n_blocks, bs, Kv, hd]
-    leaves) is written in place and attended through the table: written
-    first, except for a rolling chunk, which attends the old cache and
-    its own K/V first (its writes would overwrite window entries its
+    In decode and chunk modes the cache is written in place, only in the
+    slots of the new (valid) tokens, and attended: paged ([n_blocks, bs,
+    Kv, hd] leaves) through the table, or contiguous ([R, S or W, Kv, hd]
+    leaves, ``ctx.block_tables`` None) in the row ``ctx.rows[b]`` of each
+    batch row b (``ctx.rows`` None: row b, the reference's gathered rows).
+    Written first, except for a rolling chunk, which attends the old cache
+    and its own K/V first (its writes would overwrite window entries its
     earlier tokens still need)."""
     if ctx.mode not in ("prefill", "decode", "chunk"):
         raise ValueError(f"unknown mode {ctx.mode!r}")
-    if ctx.mode != "prefill" and ctx.block_tables is None:
-        raise NotImplementedError(f"the contiguous KV layout {_NOT_PORTED}")
     w = cfg.window
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)                        # [..., H, hd]
@@ -116,6 +123,10 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         return x + o @ p["wo"]
     cos, sin = ctx.rope_cos[:, None, :], ctx.rope_sin[:, None, :]
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if w and ctx.mode == "chunk" and ctx.span_starts is None:
+        raise ValueError("a windowed chunk step needs span_starts")
+    if ctx.block_tables is None:
+        return x + _row_attention(q, k, v, ctx, cache, w) @ p["wo"]
     tables = ctx.block_tables
     rows = (ctx.seq_idx if ctx.mode == "chunk"
             else torch.arange(x.shape[0], device=x.device)).long()
@@ -136,8 +147,6 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         phys, off = phys[:ctx.n_valid], off[:ctx.n_valid]
         entries = {kk: val[:ctx.n_valid] for kk, val in entries.items()}
     if w and ctx.mode == "chunk":
-        if ctx.span_starts is None:
-            raise ValueError("a windowed chunk step needs span_starts")
         offs = ctx.span_starts[ctx.seq_idx.long()]
         n_valid = x.shape[0] if ctx.n_valid is None else ctx.n_valid
         span = (k, v, tables, ctx.positions, ctx.seq_idx, offs, n_valid)
@@ -169,6 +178,61 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         else:
             o = paged_decode_attention(*args)
     return x + o @ p["wo"]
+
+
+def _row_attention(q, k, v, ctx: Ctx, cache, w: int) -> torch.Tensor:
+    """Decode and chunk attention over contiguous rows (the reference's
+    contiguous branches, repro/models/transformer.py:145-167 decode,
+    :222-245 rolling chunks, :276-291 full chunks), in place: the
+    reference gathers the batch's rows, runs the branch and scatters them
+    back; here the kernels read each token's row (``rows[seq_idx]``, or
+    ``rows[b]`` in decode) of the whole [R, S, ...] cache and only the new
+    tokens' slots are written (slot = position, or position % W for a
+    rolling row).  A chunk writes only its ``n_valid`` tokens.  Returns the
+    attention output [N, H*hd]."""
+    quant = "ks" in cache
+    entries = _cache_entries(k, v, quant)
+    slot = ctx.positions.long() % w if w else ctx.positions.long()
+    n = q.shape[0]
+    if ctx.mode == "decode":
+        rows = (ctx.rows if ctx.rows is not None else
+                torch.arange(n, dtype=torch.int32, device=q.device))
+        for kk, val in entries.items():
+            cache[kk][rows.long(), slot] = val
+        if quant:
+            args = (q, cache["k"], cache["ks"], cache["v"], cache["vs"], rows,
+                    ctx.positions)
+            return (contiguous_decode_attention_quant_rolling(*args, window=w)
+                    if w else contiguous_decode_attention_quant(*args))
+        args = (q, cache["k"], cache["v"], rows, ctx.positions)
+        return (contiguous_decode_attention_rolling(*args, window=w) if w
+                else contiguous_decode_attention(*args))
+    tok_rows = (ctx.seq_idx if ctx.rows is None
+                else ctx.rows[ctx.seq_idx.long()])
+    n_valid = n if ctx.n_valid is None else ctx.n_valid
+    # bucket padding repeats the last valid token: only the valid tokens
+    # are written (see self_attn_block's paged branch)
+    dst = (tok_rows[:n_valid].long(), slot[:n_valid])
+
+    def scatter():
+        for kk, val in entries.items():
+            cache[kk][dst] = val[:n_valid]
+
+    if w:
+        span = (k, v, ctx.positions, tok_rows,
+                ctx.span_starts[ctx.seq_idx.long()], n_valid)
+        o = (span_attention_rolling_quant(
+                q, cache["k"], cache["ks"], cache["v"], cache["vs"], *span,
+                window=w) if quant else
+             span_attention_rolling(q, cache["k"], cache["v"], *span,
+                                    window=w))
+        scatter()
+        return o
+    scatter()
+    if quant:
+        return span_attention_quant(q, cache["k"], cache["ks"], cache["v"],
+                                    cache["vs"], ctx.positions, tok_rows)
+    return span_attention(q, cache["k"], cache["v"], ctx.positions, tok_rows)
 
 
 def _cache_entries(k: torch.Tensor, v: torch.Tensor, quant: bool):

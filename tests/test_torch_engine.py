@@ -267,22 +267,32 @@ def test_chunked_int8_kv_token_identical_to_monolithic():
 
 def test_unported_configurations_raise(models):
     _, (model, params) = models
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        engine.SiPipeEngine(model, params, engine.EngineConfig(
-            kv_layout="contiguous", prefill_chunk_tokens=8))
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        engine.SiPipeEngine(model, params, engine.EngineConfig(
-            kv_layout="contiguous"))
+    # the contiguous layout is served (tests/test_torch_contiguous*.py):
+    # asked for, under either policy, it keeps one row per sequence and
+    # no block manager
+    cfg = model.cfg
+    for chunk in (8, None):
+        eng = engine.SiPipeEngine(model, params, engine.EngineConfig(
+            kv_layout="contiguous", prefill_chunk_tokens=chunk,
+            max_seq_len=32))
+        assert eng.cfg.kv_layout == "contiguous" and not eng.paged
+        assert eng.kv_manager is None
+        assert eng.stages[0].cache["l0"]["k"].shape == (
+            eng.stages[0].stage.n_groups, 8, 32, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+        eng.shutdown()
     with pytest.raises(ValueError, match="kv_layout"):
         engine.SiPipeEngine(model, params, engine.EngineConfig(
             kv_layout="virtual", prefill_chunk_tokens=8))
-    # windowed and MoE models run (tests/test_torch_moe.py); what still
-    # raises: a window that is not a block multiple under the default
-    # layout (the reference falls back to contiguous rows there), the
-    # hybrid family, and a shared expert, fused or not
+    # windowed and MoE models run (tests/test_torch_moe.py); a window that
+    # is not a block multiple takes contiguous rolling rows under the
+    # default layout, as in the reference.  What still raises: the hybrid
+    # family, and a shared expert, fused or not
     windowed = build_model(dataclasses.replace(get_config(ARCH), window=20))
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        engine.SiPipeEngine(windowed, params, engine.EngineConfig())
+    eng = engine.SiPipeEngine(windowed, params, engine.EngineConfig())
+    assert eng.cfg.kv_layout == "contiguous"
+    assert eng.stages[0].cache["l0"]["v"].shape[1:3] == (8, 20)
+    eng.shutdown()
     with pytest.raises(NotImplementedError, match="hybrid"):
         engine.SiPipeEngine(dataclasses.replace(
             model, cfg=dataclasses.replace(model.cfg, family="hybrid")),

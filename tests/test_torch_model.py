@@ -391,9 +391,10 @@ def test_bridge_serves_the_int8_cache_model(models):
 
 def test_unported_paths_raise(models):
     """What stays unported raises: the reference's other model options,
-    families other than dense and moe, a shared expert, and the
-    contiguous cache layout.  (The MoE family and windowed attention run:
-    tests/test_torch_moe.py.)"""
+    families other than dense and moe, and a shared expert.  (The MoE
+    family and windowed attention run: tests/test_torch_moe.py; the
+    contiguous cache layout runs, checked here and in
+    tests/test_torch_contiguous.py.)"""
     _, _, model, params = models
     cfg = get_config(ARCH)
     for opt in ("triangular", "fuse_shared_expert", "seq_shard"):
@@ -407,9 +408,18 @@ def test_unported_paths_raise(models):
         build_model(cfg.__class__(**{**cfg.__dict__, "family": "moe"}))
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32))
     cache = model.paged_cache(cfg.num_layers, N_BLOCKS + 1, BS, device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        model.decode(params, cache, {"token": i32([5]), "positions": i32([3]),
-                                     "block_tables": None})
+    # a decode step over contiguous rows (no block table) writes the new
+    # token's K/V into slot 3 of its row and leaves every other slot zero
+    rows = model.row_cache(cfg.num_layers, 1, 8, device="cpu",
+                           dtype=params["embed"].dtype)
+    logits, _ = model.decode(params, rows, {"token": i32([5]),
+                                            "positions": i32([3]),
+                                            "block_tables": None})
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    k = rows["l0"]["k"]
+    assert k[:, 0, 3].abs().sum() > 0
+    assert k[:, 0, :3].abs().sum() == 0 and k[:, 0, 4:].abs().sum() == 0
     # a windowed model's chunk step needs its rows' span starts
     windowed = build_model(cfg.__class__(**{**cfg.__dict__, "window": 16}))
     stage = split_for_pp(windowed, params, 1)[0]
