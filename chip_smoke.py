@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference,whisper]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -68,13 +68,28 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    then a decode step, with a bf16 and with an int8 cache, for
    stablelm-1.6b-smoke and for mixtral-8x7b-smoke (its W = 32 rolling
    cache wrapped).
+8. whisper — whisper-small (audio encoder-decoder: 12 + 12 layers, d 768,
+   H = Kv = 12, hd 64, vocab 51865) through the port's model API
+   (``build_model(cfg).prefill`` / ``.decode``; the engine does not serve
+   this family).  First the non-causal form of the flash kernel at its
+   shapes (the encoder, B 4, Sq = Skv = 1500; the cross prefill, Sq 4;
+   then GQA at hd 128 over 1000 keys), checked and timed as in 2 beside
+   SDPA without a mask.  Then, with the decoder's cross-attention gates
+   set to 1.0 (their init, zeros, would hide the encoder): 4 rows of 1500
+   frames and a 4-token prompt, prefill and 32 greedy decode steps over a
+   36-slot cache; every logit must be finite, each row must have its 32
+   tokens, the causal and non-causal flash kernels and the contiguous
+   decode kernel must have launched, a second run must give the same
+   tokens and logits, and other frames must move the prefill logits.
+   Last, whisper-small-smoke (1500 frames, hd 16) on the card
+   against the CPU, as in 7.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  ``--phases`` runs a
-subset (engine needs kernels, mixtral needs rolling, contiguous needs
-both; its engine runs follow the engine and mixtral phases when they
-run) and prints no result line.
+subset (engine and whisper need kernels, mixtral needs rolling,
+contiguous needs both; its engine runs follow the engine and mixtral
+phases when they run) and prints no result line.
 
 The int8 monolithic and chunked streams are compared, not required to
 be equal: monolithic prefill attends full-precision K/V and chunks the
@@ -174,12 +189,15 @@ def _bound(case, h, hd, quant=False):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _flash_bound(b, s, h, kv, hd, causal_pairs):
-    """Least time for causal prefill attention: q, k, v read once and the
-    output written once (bytes); 4*hd flops per visible (query, key) pair
-    and head, at the bf16 tensor-core rate."""
-    t_bytes = (2 * b * s * (2 * h + 2 * kv) * hd + 4 * s) / HBM_BYTES_S
-    t_ops = 4 * hd * h * b * causal_pairs / BF16_FLOP_S
+def _flash_bound(b, sq, skv, h, kv, hd, pairs, causal=True):
+    """Least time for prefill attention: q and k, v read once, the output
+    written once, and (causal) the query positions read (bytes); 4*hd
+    flops per visible (query, key) pair and head, ``pairs`` of them per
+    batch row and head, at the bf16 tensor-core rate."""
+    n_bytes = 2 * b * (2 * h * sq + 2 * kv * skv) * hd + (4 * sq if causal
+                                                          else 0)
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = 4 * hd * h * b * pairs / BF16_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -346,7 +364,7 @@ def phase_kernels(dev, gen, card):
             qt, kt, vt, is_causal=True), reps=20)
         entry = _entry("flash_attention", flash_src,
                        "src/repro/kernels/flash_attention.py:80", err, ms,
-                       plain_ms, _flash_bound(b, s, h, kv, hd,
+                       plain_ms, _flash_bound(b, s, s, h, kv, hd,
                                               s * (s + 1) // 2), lib_ms, card)
     results.append((kfa.flash_attention, entry))
 
@@ -1405,7 +1423,203 @@ def phase_reference(dev):
                                      f"disagree with the CPU")
 
 
-PHASES = ("kernels", "rolling", "engine", "mixtral", "contiguous", "reference")
+def _whisper_kernel(dev, card):
+    """The non-causal flash kernel at whisper-small's shapes (H = Kv = 12,
+    hd 64): the encoder (B 4, Sq = Skv = 1500) and the cross prefill (B 4,
+    Sq 4, Skv 1500), then GQA g = 4 at hd 128 over Skv = 1000 (no tile
+    multiple), each held against its plain version in fp32; timed at the
+    encoder's shape beside SDPA without a mask (a yardstick)."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    gen = np.random.default_rng(SEED + 2)
+    plain = functools.partial(kfa.flash_attention_plain, causal=False)
+    kernel = kfa.flash_attention_noncausal
+    entry = None
+    for b, sq, skv, h, kv, hd in ((4, 1500, 1500, 12, 12, 64),
+                                  (4, 4, 1500, 12, 12, 64),
+                                  (2, 100, 1000, 8, 2, 128)):
+        q, k, v = (torch.tensor(gen.standard_normal((b, n, m, hd),
+                                                    np.float32),
+                                device=dev).to(torch.bfloat16)
+                   for n, m in ((sq, h), (skv, kv), (skv, kv)))
+        args = [q, k, v]
+        err = _held("flash_attention_noncausal", kernel, plain, args,
+                    f"B={b} Sq={sq} Skv={skv} H={h} Kv={kv} hd={hd}")
+        if entry is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            continue
+        ms = _kernel_ms(kernel, lambda: kernel(*args))
+        plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          reps=20)
+        entry = _entry("flash_attention_noncausal",
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:80 "
+                       "(causal=False)", err, ms, plain_ms,
+                       _flash_bound(b, sq, skv, h, kv, hd, sq * skv,
+                                    causal=False), lib_ms, card)
+    return kernel, entry
+
+
+def _whisper_setup(cfg, dev, gen, b=4, n_prompt=4):
+    """A whisper model with seeded weights and its cross-attention gates
+    set to 1.0 (tanh ~ 0.76; the init's zeros would hide the encoder:
+    with a zero gate the logits do not depend on the frames), frames of
+    the stub frontend (scale 0.02) and prompt tokens."""
+    import torch
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    params["stacks"]["decoder"]["cross"]["gate"].fill_(1.0)
+    frames = torch.tensor(gen.standard_normal((b, model.enc_len,
+                                               cfg.d_model), np.float32)
+                          * 0.02, device=dev).to(torch.bfloat16)
+    prompt = torch.tensor(gen.integers(2, cfg.vocab_size, (b, n_prompt)),
+                          device=dev)
+    return model, params, frames, prompt
+
+
+def _whisper_greedy(model, params, frames, prompt, n_steps, tokens=None):
+    """Prefill, then ``n_steps`` greedy decode steps over a cache of prompt
+    + n_steps slots (``tokens``, [B, n_steps], feeds fixed tokens instead).
+    Returns every step's logits, the decode steps' tokens [B, n_steps],
+    and the prefill and decode seconds."""
+    import torch
+    b, s = prompt.shape
+    dev = frames.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.monotonic()
+    logits, fresh = model.prefill(params, {"frames": frames,
+                                           "tokens": prompt})
+    cache = model.init_cache(b, s + n_steps, device=dev, dtype=frames.dtype,
+                             fill=fresh)
+    del fresh
+    sync()
+    t1 = time.monotonic()
+    steps, out = [logits], []
+    tok = logits.argmax(-1).to(torch.int32)
+    for i in range(n_steps):
+        if tokens is not None:
+            tok = tokens[:, i]
+        lg, cache = model.decode(params, cache, {
+            "token": tok, "positions": torch.full((b,), s + i,
+                                                  dtype=torch.int32,
+                                                  device=dev)})
+        steps.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+    sync()
+    t2 = time.monotonic()
+    return (torch.stack(steps).float().cpu(),
+            torch.stack(out, 1).cpu().tolist(), t1 - t0, t2 - t1)
+
+
+def phase_whisper(dev, kernels, card):
+    """whisper-small (audio encoder-decoder) through the port's model API:
+    the non-causal flash kernel's check; then at full width, B = 4 rows
+    of 1500 frames and a 4-token prompt, prefill and 32 greedy decode
+    steps, every launch counter set to 0 just before and read just after:
+    every logit finite, 32 tokens a row, the causal and non-causal flash
+    kernels and the contiguous decode kernel launched, a second run the
+    same tokens and logits, other frames other prefill logits; then
+    whisper-small-smoke (enc_len 1500, hd 16) on the card against the
+    CPU, prefill and 4 decode steps on fixed tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.stacked import tree_map
+
+    kernel, entry = _whisper_kernel(dev, card)
+    kernels.append((kernel, entry))
+    cfg = get_config("whisper-small")
+    gen = np.random.default_rng(SEED + 3)
+    t0 = time.monotonic()
+    model, params, frames, prompt = _whisper_setup(cfg, dev, gen)
+    torch.cuda.synchronize()
+    print(f"whisper: {cfg.name} enc L={cfg.encoder_layers} dec "
+          f"L={cfg.num_layers} d={cfg.d_model} H={cfg.num_heads} "
+          f"Kv={cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
+          f"vocab={cfg.vocab_size} enc_len={model.enc_len}: init "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    n_steps = 32
+    path = (kfa.flash_attention, kfa.flash_attention_noncausal,
+            kda.contiguous_decode_attention)
+    counters = {k for k, _ in kernels} | set(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    logits, stream, pre_s, dec_s = _whisper_greedy(model, params, frames,
+                                                   prompt, n_steps)
+    launches = {k.__name__: k.launches for k in path}
+    entry["launches"] = launches["flash_attention_noncausal"]
+    peak = torch.cuda.max_memory_allocated()
+    b = len(stream)
+    print(f"whisper greedy: {b} rows, new tokens {[len(x) for x in stream]}"
+          f", launches {launches}, first row {stream[0][:8]}...", flush=True)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("whisper: a logit is not finite")
+    if any(len(x) != n_steps for x in stream):
+        raise AssertionError(f"whisper: not every row has {n_steps} tokens")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the whisper path")
+    again = _whisper_greedy(model, params, frames, prompt, n_steps)
+    print(f"whisper greedy: a second run gives the same tokens: "
+          f"{again[1] == stream}, the same logits: "
+          f"{torch.equal(again[0], logits)}", flush=True)
+    if again[1] != stream or not torch.equal(again[0], logits):
+        raise AssertionError("whisper: two identical runs differ")
+    other = torch.tensor(gen.standard_normal(tuple(frames.shape), np.float32)
+                         * 0.02, device=dev).to(torch.bfloat16)
+    moved = float((model.prefill(params, {"frames": other,
+                                          "tokens": prompt})[0].float().cpu()
+                   - logits[0]).abs().max())
+    # the frames (scale 0.02) ride on sinusoids of scale 1, so they move
+    # the logits little; the same frames repeat them bit for bit (above)
+    print(f"whisper: other frames move the prefill logits by up to "
+          f"{moved:.4f}", flush=True)
+    if not moved > 0:
+        raise AssertionError("whisper: the frames do not reach the logits")
+    enc_ms = _time_ms(lambda: model.encode(params, frames), reps=5)
+    for label, p_s, d_s in (("first run", pre_s, dec_s),
+                            ("second run", *again[2:])):
+        print(f"whisper {label}: encoder {enc_ms:.3f} ms, prefill "
+              f"{p_s * 1e3:.3f} ms, decode step {d_s / n_steps * 1e3:.3f} "
+              f"ms, {b * n_steps / (p_s + d_s):.2f} tok/s (B = {b}, "
+              f"{n_steps} steps), peak memory {peak / 2**30:.2f} GiB on "
+              f"{card}", flush=True)
+    del model, params, frames, other, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the smoke config on the card against the CPU, on fixed tokens
+    cfg = get_config("whisper-small-smoke")
+    gen = np.random.default_rng(SEED + 4)
+    model, params, frames, prompt = _whisper_setup(cfg, "cpu", gen, b=2)
+    tokens = torch.tensor(gen.integers(2, cfg.vocab_size, (2, 4)),
+                          dtype=torch.int32)
+    a, _, _, _ = _whisper_greedy(model, params, frames, prompt, 4, tokens)
+    to_dev = lambda x: x.to(dev)
+    c, _, _, _ = _whisper_greedy(model, tree_map(to_dev, params),
+                                 to_dev(frames), to_dev(prompt), 4,
+                                 to_dev(tokens))
+    err = float((a - c).abs().max())
+    print(f"whisper {cfg.name} prefill+4 decode steps: logits card vs CPU "
+          f"max_abs_err={err:.3e} (tol {LOGIT_TOL}), shape "
+          f"{tuple(c.shape)}", flush=True)
+    if not bool(torch.isfinite(c).all()) or not err <= LOGIT_TOL:
+        raise AssertionError(f"{cfg.name}: logits on the card disagree with "
+                             f"the CPU")
+
+
+PHASES = ("kernels", "rolling", "engine", "mixtral", "contiguous", "reference",
+          "whisper")
 
 
 def main(argv=None) -> int:
@@ -1461,6 +1675,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "reference" in phases:
         phase_reference(dev)
+    if "whisper" in phases:
+        phase_whisper(dev, kernels, card)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)
     print(card)
     print(json.dumps({"kernels": [e for _, e in kernels]}))

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ArchConfig, MoEConfig  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "stablelm-1.6b": "stablelm_1_6b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "whisper-small": "whisper_small",
 }
 
 

@@ -1,5 +1,7 @@
-// Causal (optionally windowed) prefill attention for the monolithic
-// prefill step (prefill_fn).
+// Prefill attention: causal (optionally windowed) for the monolithic
+// prefill step (prefill_fn), or non-causal (every key of the batch row:
+// the whisper encoder's self-attention and the decoder's cross-attention
+// to the encoder output).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:80
 // (flash_attention, body _kernel) together with its layout adapter
@@ -16,18 +18,23 @@
 // each of 256 threads computes a 4 x 4 block of scores and keeps a
 // 4 x (hd/16) block of the output accumulator in registers; the running
 // max and sum are fp32, exactly the Pallas kernel's online softmax.
-// Whole tiles outside [min_q - window + 1, max_q] of the query tile's
-// positions are skipped (the Pallas kernel's pl.when); inside a visited
-// tile, masked scores are -1e30.  Ragged edges are masked, so Sq and Skv
-// need not be multiples of 64 or powers of two (prefill batches are
-// right-padded to the longest prompt); rows past Sq are computed from
-// zeros and never stored.
+// Causal: whole tiles outside [min_q - window + 1, max_q] of the query
+// tile's positions are skipped (the Pallas kernel's pl.when); inside a
+// visited tile, masked scores are -1e30.  Non-causal: every tile of the
+// row is visited, q_pos is not read (the reference ignores positions
+// there), and the tail tile's key count is the whole mask.  Ragged edges
+// are masked, so Sq and Skv need not be multiples of 64 or powers of two
+// (prefill batches are right-padded to the longest prompt; the encoder
+// has 1500 frames), nor equal (cross-attention: a few queries over the
+// encoder's keys); rows past Sq are computed from zeros and never stored.
 //
 // What bounds it: the least work is 4 * hd flops per visible (query, key)
 // pair and head against 2 * (2H + 2Kv) * hd bytes per (row, position) of
 // q, k, v and the output; with H = Kv that is S / 4 flops per byte, so
 // memory bounds the engine's prompts (S <= 512) and the bf16 tensor
 // cores bound prompts beyond S ~ 1200 (the H100's ~295 flops per byte).
+// Non-causal, every pair is visible: the encoder (S = 1500) is bound by
+// operations, the cross-attention (Sq = 4) by reading the encoder's K/V.
 // This first version runs fp32 FMAs (no tensor cores, no TMA, no warp
 // specialisation) and reads each kv tile once per query tile, so it is
 // far from either bound.
@@ -68,7 +75,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ q_pos,
                        __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                       int H, int Kv, int window, float scale) {
+                       int H, int Kv, int causal, int window, float scale) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
   constexpr int kQS = kBQ + kPad, kKS = kBK + kPad, kPS = kBK + 1;
   constexpr int kCols = HD / 16;  // accumulator columns per thread
@@ -95,7 +102,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     qT[d * kQS + r] = x;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
-    pos_s[r] = r < nq ? q_pos[q0 + r] : 0;
+    pos_s[r] = causal && r < nq ? q_pos[q0 + r] : 0;
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
   }
@@ -106,8 +113,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     q_min = min(q_min, pos_s[r]);
     q_max = max(q_max, pos_s[r]);
   }
-  const int k_hi = min(Skv, q_max + 1);
-  const int k_lo = window ? max(0, q_min - window + 1) / kBK * kBK : 0;
+  const int k_hi = causal ? min(Skv, q_max + 1) : Skv;
+  const int k_lo =
+      causal && window ? max(0, q_min - window + 1) / kBK * kBK : 0;
 
   float acc[4][kCols];
 #pragma unroll
@@ -153,7 +161,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx * 4 + j, kp = k0 + c;
-        const bool live = c < nk && kp <= qp && (!window || kp > qp - window);
+        const bool live =
+            c < nk && (!causal || (kp <= qp && (!window || kp > qp - window)));
         ps[r * kPS + c] = live ? s[i][j] * scale : kNegInf;
       }
     }
@@ -208,7 +217,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, void* out, int B, int Sq, int Skv,
-                   int H, int Kv, int window, float scale,
+                   int H, int Kv, int causal, int window, float scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_words<HD>();
   if (smem > 48 * 1024) {
@@ -221,25 +230,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)q_pos, (__nv_bfloat16*)out, Sq,
-      Skv, H, Kv, window, scale);
+      Skv, H, Kv, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16; q_pos [Sq] int32;
-// out [B, Sq, H*hd] bf16.  hd must be 16, 32, 64 or 128.
+// q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16; q_pos [Sq] int32 (read
+// only when causal; may be null otherwise); out [B, Sq, H*hd] bf16.  hd
+// must be 16, 32, 64 or 128; a window needs the causal form.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, void* out, int B, int Sq,
-                               int Skv, int H, int Kv, int hd, int window,
-                               float scale, void* stream) {
+                               int Skv, int H, int Kv, int hd, int causal,
+                               int window, float scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
+  if (!causal && window) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, window, scale, s);
-    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, window, scale, s);
-    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, window, scale, s);
-    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, window, scale, s);
+    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
+    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
+    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
+    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -24,6 +24,12 @@ step (B = 4 rows, two of them past the W = 4096 window) and rolling chunk
 step (T = 256 over 4 rows, wrapped and not), and one MoE layer's FFN at
 T = 4 and T = 256 tokens.
 
+Then for whisper-small at full width (12 + 12 layers, random weights),
+at the shapes of ``chip_smoke.py``'s whisper phase (B = 4 rows of 1500
+frames, a 4-token prompt, a 36-slot decode cache): one encoder layer,
+the whole encoder, the whole prefill (encoder, then the decoder over the
+prompt; the decoder's share is the difference) and one decode step.
+
 Prints one line per piece and, last, one JSON object with every number
 beside the card's name and power limit.
 """
@@ -137,6 +143,38 @@ def profile_mixtral(seed: int, reps: int, dev, results):
     torch.cuda.empty_cache()
 
 
+def profile_whisper(seed: int, reps: int, dev, results):
+    """whisper-small's encoder, prefill and decode step."""
+    from repro_torch.models.stacked import Ctx
+    cfg = get_config("whisper-small")
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    b, enc = 4, model.enc_len
+    frames = (torch.randn(b, enc, cfg.d_model, device=dev) * 0.02).to(
+        torch.bfloat16)
+    tokens = torch.randint(2, cfg.vocab_size, (b, 4), device=dev)
+    layer = tree_map(lambda w: w[0], params["stacks"]["encoder"])
+    ctx = Ctx(mode="train", positions=torch.arange(
+        enc, dtype=torch.int32, device=dev))
+    _piece(f"whisper one encoder layer (B={b}, S={enc})",
+           lambda: model.stacks["encoder"].apply(layer, frames, ctx, None),
+           reps, results)
+    _piece(f"whisper encoder ({cfg.encoder_layers} layers)",
+           lambda: model.encode(params, frames), reps, results)
+    batch = {"frames": frames, "tokens": tokens}
+    _piece("whisper prefill (encoder + decoder, prompt 4)",
+           lambda: model.prefill(params, batch), reps, results)
+    cache = model.init_cache(b, 36, device=dev,
+                             fill=model.prefill(params, batch)[1])
+    step = {"token": tokens[:, 0],
+            "positions": torch.full((b,), 20, dtype=torch.int32, device=dev)}
+    _piece(f"whisper decode step (B={b}, {cfg.num_layers} layers)",
+           lambda: model.decode(params, cache, step), reps, results)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_dense(args, dev, results):
     """The dense model's pieces (the module docstring's first list)."""
     cfg = get_config(args.arch)
@@ -222,6 +260,7 @@ def main():
     results = {}
     profile_dense(args, dev, results)
     profile_mixtral(args.seed, args.reps, dev, results)
+    profile_whisper(args.seed, args.reps, dev, results)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()

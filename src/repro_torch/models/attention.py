@@ -39,15 +39,17 @@ def kv_tile(kv_block: int, s: int) -> int:
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0, kv_block: int = 512,
+                      causal: bool = True, window: int = 0,
+                      kv_block: int = 512,
                       q_positions: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Flash-style causal prefill attention (the reference's
-    ``chunked_attention`` with ``causal=True``): kv tiles of ``kv_block``
+    """Flash-style prefill attention (the reference's ``chunked_attention``):
+    kv tiles of ``kv_block`` (clipped and halved until it divides Skv)
     with a running fp32 softmax.  q [B, Sq, Hq, hd]; k, v [B, Skv, Kv,
     hd]; query row i sits at ``q_positions[i]`` (default ``i``) and sees
-    key j iff ``j <= q_positions[i]`` and ``j > q_positions[i] - window``
-    (window > 0).  Returns [B, Sq, Hq*hd]."""
+    key j iff ``j <= q_positions[i]`` (``causal``) and ``j >
+    q_positions[i] - window`` (window > 0); with neither, every key.
+    Returns [B, Sq, Hq*hd]."""
     b, sq, hq, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     g = hq // n_kv
@@ -66,7 +68,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vblk = v[:, start:start + kv_block]
         kpos = torch.arange(start, start + kv_block, device=q.device)
         sc = torch.einsum("bsgqd,btgd->bgqst", qg, kblk).float() * scale
-        mask = qpos[:, None] >= kpos[None, :]
+        mask = torch.ones((sq, kv_block), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
         if window:
             mask &= kpos[None, :] > qpos[:, None] - window
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
@@ -79,6 +83,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = mn
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, sq, hq * hd)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Non-causal attention to a fixed memory (the encoder's output):
+    :func:`chunked_attention` with ``causal=False``."""
+    return chunked_attention(q, k, v, causal=False, kv_block=kv_block)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

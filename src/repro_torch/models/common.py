@@ -1,4 +1,5 @@
-"""Shared model numerics: RMSNorm, RoPE, and the port's random init.
+"""Shared model numerics: RMSNorm, RoPE, sinusoidal positions, and the
+port's random init.
 
 Each function follows the reference's (``repro.models.common``) dtype
 casts op for op, so the parity tests compare like with like.
@@ -9,6 +10,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -37,15 +39,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      -1).to(x.dtype)
 
 
+def sinusoid_positions(length: int, d_model: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embedding [length, d_model]
+    (bf16): computed in numpy float64, then rounded, as the reference
+    does."""
+    half = d_model // 2
+    scale = np.log(10000.0) / max(half - 1, 1)
+    inv = np.exp(-scale * np.arange(half))
+    pos = np.arange(length)[:, None] * inv[None, :]
+    emb = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    return torch.from_numpy(emb).to(torch.bfloat16)
+
+
 def init_tensor(shape, init: str, generator: torch.Generator, *,
                 device, fan_in: int = 0,
                 dtype=torch.bfloat16) -> torch.Tensor:
-    """One parameter under the reference's init schemes: ``ones``,
-    ``small`` (N(0, 0.02^2)) or ``normal`` (N(0, 1/fan_in)), drawn in
+    """One parameter under the reference's init schemes: ``zeros``,
+    ``ones``, ``small`` (N(0, 0.02^2)) or ``normal`` (N(0, 1/fan_in)), drawn in
     fp32 from ``generator`` (which must live on ``device``) and cast.  A
     leaf above ``_DRAW_LIMIT`` elements is drawn one leading slice at a
     time, so its fp32 draw never doubles the memory it takes (a stacked
     expert leaf of mixtral-8x7b is 7.5 G elements)."""
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
     fan = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
@@ -66,8 +82,10 @@ _DRAW_LIMIT = 1 << 30
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Declarative parameter: shape + init scheme (see :func:`init_tensor`)."""
+    """Declarative parameter: shape + init scheme (see :func:`init_tensor`)
+    + dtype."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | ones | small
+    init: str = "normal"  # normal | zeros | ones | small
     fan_in: int = 0
+    dtype: torch.dtype = torch.bfloat16

@@ -1,16 +1,20 @@
 """Model assembly: ``build_model(cfg)`` for the dense and MoE decoder
-families (full attention or a sliding window).
+families (full attention or a sliding window) and the audio
+encoder-decoder family (whisper).
 
 Model = embed -> Stack -> final norm -> lm head.  Parameters are nested
 dicts of tensors in the reference's layout (``embed``, ``lnf``, ``head``,
 ``stacks/blocks/l0/{attn,ffn}/...`` with a leading ``[groups]`` axis; an
-MoE layer's ``ffn`` is ``{ln, moe: {router, w1, w3, w2}}``), so
-:mod:`repro_torch.bridge` maps the reference's pytree onto them leaf for
-leaf.  The engine drives the model through the ``make_ctx``,
-``embed_tokens`` and ``lm_head`` hooks and :func:`run_stack`.
-:class:`ModelOptions` selects the int8 KV cache (``kv_quant``) and the
-prefill attention's kv tile; the reference's other options are not
-ported and raise when set.
+MoE layer's ``ffn`` is ``{ln, moe: {router, w1, w3, w2}}``; whisper has
+``stacks/encoder/{attn,ffn}``, ``stacks/decoder/{self,cross,ffn}`` and
+``enc_lnf``), so :mod:`repro_torch.bridge` maps the reference's pytree
+onto them leaf for leaf.  The engine drives the dense and MoE models
+through the ``make_ctx``, ``embed_tokens`` and ``lm_head`` hooks and
+:func:`run_stack`; it does not serve the audio family, which runs
+through ``prefill`` and ``decode`` (and :meth:`Model.init_cache`).
+:class:`ModelOptions` selects the int8 KV cache (``kv_quant``; dense and
+MoE) and the prefill attention's kv tile; the reference's other options
+are not ported and raise when set.
 """
 from __future__ import annotations
 
@@ -22,10 +26,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamSpec, init_tensor, rmsnorm, \
-    rope_tables
+    rope_tables, sinusoid_positions
 from repro_torch.models.stacked import Ctx, Stack, run_stack, stack_specs, \
     tree_map
 from repro_torch.models.transformer import dense_layer_stack
+from repro_torch.models.whisper import decoder_stack, encoder_stack
 
 PyTree = Any
 
@@ -59,6 +64,9 @@ class Model:
     make_ctx: Callable
     embed_tokens: Callable
     lm_head: Callable
+    enc_len: int = 0                   # audio: encoder frames of the cache
+    # audio: (params, frames [B, Se, d]) -> the encoder's output [B, Se, d]
+    encode: Optional[Callable] = None
 
     def init(self, seed: int = 0, device=None) -> PyTree:
         """Random parameters from a seeded ``torch.Generator`` on
@@ -69,7 +77,8 @@ class Model:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         return tree_map(lambda s: init_tensor(s.shape, s.init, gen,
-                                              fan_in=s.fan_in, device=device),
+                                              fan_in=s.fan_in, device=device,
+                                              dtype=s.dtype),
                         self.specs)
 
     @property
@@ -125,6 +134,31 @@ class Model:
                            lambda shape, dt: torch.zeros(shape, dtype=dt,
                                                          device=device))
 
+    def init_cache(self, batch: int, cache_len: int, device=None,
+                   dtype=torch.bfloat16, fill: Optional[PyTree] = None
+                   ) -> PyTree:
+        """Zeroed decode cache of an audio model (the reference's
+        ``init_cache(batch, cache_len)``): ``{"decoder": {"self": {k, v},
+        "cross": {k, v}}}`` with self leaves [L, B, cache_len, Kv, hd] and
+        cross leaves [L, B, enc_len, Kv, hd], on ``device`` (``cuda``
+        unless given).  ``fill``, a prefill cache, is copied into its
+        leading slots, so decoding goes on past the prompt."""
+        if self.cfg.family != "audio":
+            raise ValueError("init_cache builds the audio family's cache; "
+                             "dense and moe models use paged_cache or "
+                             "row_cache")
+        device = resolve_device(device)
+        cache = {"decoder": _audio_cache(
+            self.cfg, batch, cache_len, self.enc_len,
+            lambda shape: torch.zeros(shape, dtype=dtype, device=device))}
+        if fill is not None:
+            for part in ("self", "cross"):
+                for kk in "kv":
+                    src = fill["decoder"][part][kk]
+                    cache["decoder"][part][kk][
+                        tuple(slice(0, n) for n in src.shape)] = src
+        return cache
+
     def prefill_cache(self, n_groups: int, batch: int, seq: int, device,
                       dtype=torch.bfloat16) -> PyTree:
         """Uninitialized per-prompt cache that prefill mode fills:
@@ -137,16 +171,50 @@ class Model:
                                                          device=device))
 
 
-def build_model(cfg: ArchConfig,
-                options: ModelOptions = ModelOptions()) -> Model:
-    if cfg.family not in ("dense", "moe"):
+def _audio_cache(cfg: ArchConfig, batch: int, seq: int, enc_len: int,
+                 make) -> PyTree:
+    """The whisper decoder's cache tree, leaves from ``make(shape)``."""
+    lead = (cfg.num_layers, batch)
+    tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"self": {kk: make(lead + (seq,) + tail) for kk in "kv"},
+            "cross": {kk: make(lead + (enc_len,) + tail) for kk in "kv"}}
+
+
+def _sinusoid_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding [B, d_model] of decode ``positions`` [B]:
+    computed in fp32, then rounded to bf16, as the reference's decode does
+    (its prefill rounds :func:`sinusoid_positions`' float64 table)."""
+    half = d_model // 2
+    f32 = dict(dtype=torch.float32, device=positions.device)
+    # tensor operands: the reference divides (PyTorch would multiply by a
+    # Python divisor's reciprocal)
+    log = torch.log(torch.tensor(10000.0, **f32))
+    inv = torch.exp(-log / torch.tensor(float(max(half - 1, 1)), **f32)
+                    * torch.arange(half, **f32))
+    ang = positions.float()[:, None] * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(torch.bfloat16)
+
+
+def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
+                enc_len: int = 0) -> Model:
+    """The model of ``cfg``.  ``enc_len`` (audio only; default 1500, the
+    reference's) is the encoder length :meth:`Model.init_cache` sizes the
+    cross cache for."""
+    if cfg.family not in ("dense", "moe", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1)")
     for name in _UNPORTED_OPTIONS:
         if getattr(options, name) != getattr(ModelOptions, name):
             raise NotImplementedError(
                 f"ModelOptions.{name} is not ported yet (ROADMAP.md queue 1)")
-    if cfg.family == "moe":
+    audio = cfg.family == "audio"
+    if audio and options.kv_quant:
+        raise NotImplementedError("the int8 KV cache (kv_quant) of the "
+                                  "audio family is not ported")
+    if audio:
+        stacks = {"encoder": encoder_stack(cfg),
+                  "decoder": decoder_stack(cfg)}
+    elif cfg.family == "moe":
         if cfg.moe is None:
             raise ValueError(f"{cfg.name}: family 'moe' needs a MoEConfig")
         per = cfg.moe.every
@@ -161,6 +229,8 @@ def build_model(cfg: ArchConfig,
         "head": ParamSpec((d, v)),
         "stacks": {name: stack_specs(st) for name, st in stacks.items()},
     }
+    if audio:
+        specs["enc_lnf"] = ParamSpec((d,), "ones")
     hd = cfg.resolved_head_dim
 
     def make_ctx(mode: str, positions: torch.Tensor,
@@ -169,12 +239,15 @@ def build_model(cfg: ArchConfig,
                  n_valid: Optional[int] = None,
                  seq_lens: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None,
-                 rows: Optional[torch.Tensor] = None) -> Ctx:
-        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+                 rows: Optional[torch.Tensor] = None,
+                 enc_out: Optional[torch.Tensor] = None) -> Ctx:
+        cos = sin = None
+        if not audio:                  # whisper's positions are sinusoids
+            cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         return Ctx(mode=mode, positions=positions, rope_cos=cos,
                    rope_sin=sin, seq_idx=seq_idx, span_starts=span_starts,
                    n_valid=n_valid, seq_lens=seq_lens,
-                   block_tables=block_tables, rows=rows,
+                   block_tables=block_tables, rows=rows, enc_out=enc_out,
                    kv_block=options.kv_block, kv_quant=options.kv_quant)
 
     def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -183,11 +256,41 @@ def build_model(cfg: ArchConfig,
     def lm_head(params, x: torch.Tensor) -> torch.Tensor:
         return (rmsnorm(x, params["lnf"], cfg.norm_eps) @ params["head"]).float()
 
+    def run_encoder(params, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, Se, d] -> the encoder's normed output [B, Se, d]."""
+        s = frames.shape[1]
+        x = frames + sinusoid_positions(s, d).to(frames.device)[None]
+        ctx = Ctx(mode="train", positions=torch.arange(
+            s, dtype=torch.int32, device=frames.device),
+            kv_block=options.kv_block)
+        x = run_stack(stacks["encoder"], params["stacks"]["encoder"], x, ctx)
+        return rmsnorm(x, params["enc_lnf"], cfg.norm_eps)
+
+    def prefill_audio(params, batch):
+        frames, tokens = batch["frames"], batch["tokens"]
+        b, s = tokens.shape
+        enc_out = run_encoder(params, frames)
+        x = embed_tokens(params, tokens) \
+            + sinusoid_positions(s, d).to(tokens.device)[None]
+        ctx = make_ctx("prefill", torch.arange(s, dtype=torch.int32,
+                                               device=x.device),
+                       enc_out=enc_out)
+        cache = _audio_cache(cfg, b, s, frames.shape[1], lambda shape:
+                             torch.empty(shape, dtype=x.dtype,
+                                         device=x.device))
+        x = run_stack(stacks["decoder"], params["stacks"]["decoder"], x, ctx,
+                      cache)
+        return lm_head(params, x[:, -1]), {"decoder": cache}
+
     def prefill(params, batch):
         """batch: ``tokens`` [B, S].  Returns the logits of each row's
         last token [B, V] and ``{"blocks": cache}``, the prompt's K/V
         (int8 with scales under ``kv_quant``) as leaves [groups, B, S or
-        W, ...]."""
+        W, ...].  Audio: batch also holds ``frames`` [B, Se, d], and the
+        cache is ``{"decoder": {"self": {k, v}, "cross": {k, v}}}``, self
+        leaves [L, B, S, Kv, hd] and cross leaves [L, B, Se, Kv, hd]."""
+        if audio:
+            return prefill_audio(params, batch)
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = embed_tokens(params, tokens)
@@ -204,7 +307,16 @@ def build_model(cfg: ArchConfig,
         ``block_tables`` [B, nb] int32, with ``cache`` as :meth:`Model.
         paged_cache`, or None, with ``cache`` the batch's B rows as
         :meth:`Model.row_cache` makes them; all layers, updated in
-        place."""
+        place.  Audio: no ``block_tables``; ``cache`` as :meth:`Model.
+        init_cache` (or prefill) makes it, row b of the self cache written
+        at ``positions[b]``."""
+        if audio:
+            positions = batch["positions"]
+            x = embed_tokens(params, batch["token"]) \
+                + _sinusoid_at(positions, d)
+            x = run_stack(stacks["decoder"], params["stacks"]["decoder"], x,
+                          make_ctx("decode", positions), cache["decoder"])
+            return lm_head(params, x), cache
         x = embed_tokens(params, batch["token"])
         ctx = make_ctx("decode", batch["positions"],
                        block_tables=batch["block_tables"])
@@ -214,5 +326,7 @@ def build_model(cfg: ArchConfig,
 
     model = Model(cfg=cfg, options=options, specs=specs, stacks=stacks,
                   prefill=prefill, decode=decode, make_ctx=make_ctx,
-                  embed_tokens=embed_tokens, lm_head=lm_head)
+                  embed_tokens=embed_tokens, lm_head=lm_head,
+                  enc_len=(enc_len or 1500) if audio else 0,
+                  encode=run_encoder if audio else None)
     return model

@@ -21,7 +21,7 @@ PyTree = Any
 class Ctx:
     """Per-call context threaded through block apply functions."""
 
-    mode: str                      # prefill | decode | chunk
+    mode: str                      # train | prefill | decode | chunk
     positions: torch.Tensor        # prefill: [S]; decode: [B]; chunk: [T]
     rope_cos: Optional[torch.Tensor] = None
     rope_sin: Optional[torch.Tensor] = None
@@ -43,6 +43,9 @@ class Ctx:
     # row [B] int32 in the [R, S, ...] leaves, read and written in place
     # (None: the cache holds exactly the batch's rows, in order)
     rows: Optional[torch.Tensor] = None
+    # whisper: the encoder's output [B, Se, d], which the decoder's
+    # cross-attention reads at prefill
+    enc_out: Optional[torch.Tensor] = None
     # prefill attention's kv tile (its plain version's; ModelOptions)
     kv_block: int = 512
     # int8 KV cache: {k, v} int8 with bf16 scales {ks, vs}
@@ -53,7 +56,8 @@ class Ctx:
 class Stack:
     """``apply(group_params, x, ctx, cache_group) -> x``; the group's
     cache is updated in place (in prefill mode it receives the group's
-    fresh K/V: ``Model.prefill_cache`` allocates it)."""
+    fresh K/V: ``Model.prefill_cache`` allocates it).  A stack without a
+    cache (the whisper encoder) gets ``cache_group`` None."""
 
     n: int
     specs: PyTree
@@ -70,13 +74,16 @@ def tree_map(fn, tree):
 def stack_specs(stack: Stack) -> PyTree:
     """Per-group specs with the leading ``[groups]`` axis added."""
     return tree_map(lambda s: ParamSpec((stack.n,) + s.shape, s.init,
-                                        s.fan_in), stack.specs)
+                                        s.fan_in, s.dtype), stack.specs)
 
 
 def run_stack(stack: Stack, params_stacked: PyTree, x: torch.Tensor,
-              ctx: Ctx, cache_stacked: PyTree) -> torch.Tensor:
-    """Run the ``n`` groups in order; caches are written in place."""
+              ctx: Ctx, cache_stacked: PyTree = None) -> torch.Tensor:
+    """Run the ``n`` groups in order; caches (nested dicts of [groups,
+    ...] leaves, or None) are written in place."""
     for i in range(stack.n):
+        cache = (None if cache_stacked is None
+                 else tree_map(lambda c: c[i], cache_stacked))
         x = stack.apply(tree_map(lambda p: p[i], params_stacked), x, ctx,
-                        tree_map(lambda c: c[i], cache_stacked))
+                        cache)
     return x

@@ -1,12 +1,15 @@
 """Decoder blocks: self-attention over a paged or contiguous KV cache +
-SwiGLU or a sparse MoE FFN.
+SwiGLU or a sparse MoE FFN; gated cross-attention to an encoder's output.
 
 Ports ``repro.models.transformer`` for the ``dense`` and ``moe`` families
 in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout
 and with contiguous rows, over a bf16 (or, for parity runs, fp32) cache
 or the int8 cache
 (``kv_quant``), with full attention or a sliding window over a rolling
-cache (slot = position % W).  Attention runs through the hand-written
+cache (slot = position % W); and the blocks the whisper family
+(``repro_torch.models.whisper``) adds: non-causal, RoPE-free
+self-attention without a cache (the encoder, ``train`` mode) and
+``cross_attn_block``.  Attention runs through the hand-written
 kernels (``repro_torch.kernels``); the projections, the MLP and the
 experts are plain matrix products, as the reference leaves them to XLA.
 """
@@ -24,7 +27,8 @@ from repro_torch.kernels.decode_attention import (
     contiguous_decode_attention_rolling, paged_decode_attention,
     paged_decode_attention_quant, paged_decode_attention_quant_rolling,
     paged_decode_attention_rolling)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, \
+    flash_attention_noncausal
 from repro_torch.kernels.span_attention import (
     paged_span_attention, paged_span_attention_quant,
     paged_span_attention_rolling, paged_span_attention_rolling_quant,
@@ -62,6 +66,16 @@ def mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def cross_attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    """:func:`attn_specs` plus the fp32 ``gate`` (zeros at init: tanh(0)
+    = 0 shuts the block until training opens it) and ``ln_kv``, the
+    memory's norm."""
+    s = attn_specs(cfg)
+    s["gate"] = ParamSpec((1,), "zeros", dtype=torch.float32)
+    s["ln_kv"] = ParamSpec((cfg.d_model,), "ones")
+    return s
+
+
 def _qkv(p, h: torch.Tensor, cfg: ArchConfig):
     hd = cfg.resolved_head_dim
     lead = h.shape[:-1]
@@ -71,8 +85,9 @@ def _qkv(p, h: torch.Tensor, cfg: ArchConfig):
     return q, k, v
 
 
-def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
-                    cfg: ArchConfig) -> torch.Tensor:
+def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache, cfg: ArchConfig,
+                    *, causal: bool = True,
+                    use_rope: bool = True) -> torch.Tensor:
     """One attention block.  Cache leaves: ``{"k", "v"}`` in the model's
     dtype, or with ``kv_quant`` ``{"k", "v"}`` int8 and their bf16 scales
     ``{"ks", "vs"}`` (one per K/V vector).  With ``cfg.window`` W the
@@ -83,6 +98,9 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
     leaves [B, S or W, Kv, hd] ([B, S or W, Kv] for scales) receive the
     prompt's K/V (a rolling cache by ``ctx.seq_lens``), int8 with
     ``kv_quant``.
+    train: prefill's forward pass, which writes no cache (``cache``
+    None); the whisper encoder runs it with ``causal=False`` (every key
+    of the row, no window) and ``use_rope=False``.
     decode: x [B, d], positions [B], row b's table is block_tables[b].
     chunk: x [T, d] is the packed span (bucket padding duplicates the last
     valid token: same token, position and row; only the valid tokens are
@@ -97,19 +115,25 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
     Written first, except for a rolling chunk, which attends the old cache
     and its own K/V first (its writes would overwrite window entries its
     earlier tokens still need)."""
-    if ctx.mode not in ("prefill", "decode", "chunk"):
+    if ctx.mode not in ("train", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown mode {ctx.mode!r}")
     w = cfg.window
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)                        # [..., H, hd]
-    if ctx.mode == "prefill":
-        cos = ctx.rope_cos[None, :, None, :]
-        sin = ctx.rope_sin[None, :, None, :]
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if ctx.mode in ("train", "prefill"):
+        if use_rope:
+            cos = ctx.rope_cos[None, :, None, :]
+            sin = ctx.rope_sin[None, :, None, :]
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         # attend the prompt's full-precision K/V; store the cache's form
-        o = flash_attention(q, k, v, ctx.positions, window=w,
-                            kv_block=min(ctx.kv_block, w) if w
-                            else ctx.kv_block)
+        if not causal:
+            o = flash_attention_noncausal(q, k, v, kv_block=ctx.kv_block)
+        else:
+            o = flash_attention(q, k, v, ctx.positions, window=w,
+                                kv_block=min(ctx.kv_block, w) if w
+                                else ctx.kv_block)
+        if ctx.mode == "train":
+            return x + o @ p["wo"]
         if w:
             # a ragged batch fills each row by its own length, so pad-tail
             # K/V never reaches a rolling slot
@@ -121,8 +145,9 @@ def self_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         for kk, val in _cache_entries(k, v, ctx.kv_quant).items():
             cache[kk].copy_(val)
         return x + o @ p["wo"]
-    cos, sin = ctx.rope_cos[:, None, :], ctx.rope_sin[:, None, :]
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = ctx.rope_cos[:, None, :], ctx.rope_sin[:, None, :]
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if w and ctx.mode == "chunk" and ctx.span_starts is None:
         raise ValueError("a windowed chunk step needs span_starts")
     if ctx.block_tables is None:
@@ -242,6 +267,38 @@ def _cache_entries(k: torch.Tensor, v: torch.Tensor, quant: bool):
         return {"k": k, "v": v}
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     return {"k": k8, "v": v8, "ks": ks, "vs": vs}
+
+
+def cross_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Gated cross-attention to ``ctx.enc_out`` [B, Se, d]; the gate's
+    arithmetic runs in fp32, as in the reference.
+    prefill (and train): x [B, S, d]; the memory's K/V (after ``ln_kv``)
+    through the non-causal flash kernel; in prefill ``cache`` leaves
+    ``{"k", "v"}`` [B, Se, Kv, hd] receive them.
+    decode: x [B, d] attends every slot of those cached K/V (the
+    reference's unmasked ``decode_attention``, through the contiguous
+    decode kernel with each row's position at Se - 1)."""
+    hd = cfg.resolved_head_dim
+    gate = torch.tanh(p["gate"].float())[0]
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(*h.shape[:-1], cfg.num_heads, hd)
+    if ctx.mode == "decode":
+        b, se = x.shape[0], cache["k"].shape[1]
+        rows = torch.arange(b, dtype=torch.int32, device=x.device)
+        last = torch.full((b,), se - 1, dtype=torch.int32, device=x.device)
+        o = contiguous_decode_attention(q, cache["k"], cache["v"], rows,
+                                        last)
+    else:
+        mem = ctx.enc_out
+        m = rmsnorm(mem, p["ln_kv"], cfg.norm_eps)
+        k = (m @ p["wk"]).reshape(*mem.shape[:-1], cfg.num_kv_heads, hd)
+        v = (m @ p["wv"]).reshape(*mem.shape[:-1], cfg.num_kv_heads, hd)
+        o = flash_attention_noncausal(q, k, v, kv_block=ctx.kv_block)
+        if ctx.mode == "prefill":
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    return x + (gate * (o @ p["wo"]).float()).to(x.dtype)
 
 
 def mlp_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -349,8 +349,9 @@ def test_serve_cpu_default_is_monolithic_and_counts_no_launches():
 def test_port_runs_without_jax_or_the_reference():
     """``import repro_torch`` and CPU engine runs (chunked, monolithic,
     and monolithic then chunked over the int8 cache; mixtral-8x7b-smoke,
-    windowed MoE, chunked and monolithic) load neither ``jax`` nor any
-    module of ``repro``."""
+    windowed MoE, chunked and monolithic), and whisper-small-smoke's
+    prefill and decode through the model API, load neither ``jax`` nor
+    any module of ``repro``."""
     code = (
         "import sys\n"
         "from repro_torch.configs import get_config\n"
@@ -379,6 +380,17 @@ def test_port_runs_without_jax_or_the_reference():
         " max_new_tokens=3, max_seq_len=128, chunk_tokens=chunk,"
         " device='cpu', verbose=False)\n"
         "    assert m['finished'] == 3, m['finished']\n"
+        "import torch\n"
+        "whisper = build_model(get_config('whisper-small-smoke'), "
+        "enc_len=70)\n"
+        "wp = whisper.init(0, device='cpu')\n"
+        "logits, c = whisper.prefill(wp, {'frames': torch.zeros(1, 70, 64,"
+        " dtype=torch.bfloat16), 'tokens': torch.tensor([[3, 4]])})\n"
+        "cache = whisper.init_cache(1, 4, device='cpu', fill=c)\n"
+        "logits, cache = whisper.decode(wp, cache, {'token': torch.tensor("
+        "[5]), 'positions': torch.tensor([2], dtype=torch.int32)})\n"
+        "assert logits.shape == (1, 256) and bool(torch.isfinite(logits)"
+        ".all())\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -391,7 +391,8 @@ def test_bridge_serves_the_int8_cache_model(models):
 
 def test_unported_paths_raise(models):
     """What stays unported raises: the reference's other model options,
-    families other than dense and moe, and a shared expert.  (The MoE
+    families other than dense, moe and audio, and a shared expert.  (The
+    audio family runs: tests/test_torch_whisper.py.  The MoE
     family and windowed attention run: tests/test_torch_moe.py; the
     contiguous cache layout runs, checked here and in
     tests/test_torch_contiguous.py.)"""
