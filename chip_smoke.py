@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference,whisper]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference,whisper,fused]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -83,13 +83,30 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    tokens and logits, and other frames must move the prefill logits.
    Last, whisper-small-smoke (1500 frames, hd 16) on the card
    against the CPU, as in 7.
+9. fused — the reference's fused-op entry point (``kernels/ops.py``):
+   first its two tensor-core kernels, swiglu and rmsnorm_matmul, at the
+   full widths of the products they fuse (stablelm-1.6b's MLP at T 256
+   and 4, one mixtral-8x7b expert at C 80; the norm and w1 of stablelm's
+   MLP entry, both models' LM heads at T 4) and at two ragged shapes,
+   each held against its plain version run on the same bf16 values with
+   its own casts (|error| <= 2^-7 * |plain| + 2^-12 * (|lhs| @ |rhs|) +
+   1e-5, ``kernels/_gemm.py``; a second launch must repeat the first bit
+   for bit) and timed beside its bound and a cuBLAS composition (a
+   yardstick; no one PyTorch call computes either function); then the
+   path: full-width stablelm-1.6b (random weights from SEED), layer 0's
+   ``x + ops.swiglu_fused(rmsnorm(x, ln), ...)`` against the model's
+   unfused ``mlp_block`` and ``ops.rmsnorm_matmul_fused(x, lnf, head)``
+   against ``lm_head``, at a decode batch [4, d] and a [1, 256, d] chunk,
+   within tests/test_kernels.py's oracle tolerance (the model rounds the
+   two gate products to bf16; the kernel keeps them in fp32); both kernels
+   must have launched there.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  ``--phases`` runs a
 subset (engine and whisper need kernels, mixtral needs rolling,
-contiguous needs both; its engine runs follow the engine and mixtral
-phases when they run) and prints no result line.
+contiguous needs both, fused needs none; its engine runs follow the
+engine and mixtral phases when they run) and prints no result line.
 
 The int8 monolithic and chunked streams are compared, not required to
 be equal: monolithic prefill attends full-precision K/V and chunks the
@@ -119,6 +136,7 @@ SEED = 0
 KERNEL_REL = 2.0 ** -7
 KERNEL_ABS = 1e-5
 LOGIT_TOL = 0.1        # smoke model logits, card vs CPU (bf16 matmuls)
+SLEEP_CYCLES = 50_000_000  # ~25-30 ms of device sleep ahead of timed calls
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 BF16_FLOP_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 INT8_OP_S = 1979e12    # H100 SXM dense int8 tensor-core rate
@@ -261,6 +279,41 @@ def _kernel_ms(kernel, fn, reps=50):
     ms = _time_ms(fn, reps=reps)
     kernel.launches = launches
     return ms
+
+
+def _device_ms(kernel, fn, reps=20):
+    """Device time of one ``fn()``: the stream first sleeps long enough
+    for the host to enqueue all ``reps`` calls, so the events time them
+    back to back on the card, without the host's launch work between
+    them (at decode shapes that work is longer than the kernels: a
+    back-to-back loop through the wrapper then times the host).  Raises
+    if the host did not finish enqueuing before the sleep ended.  The
+    timing launches of ``kernel`` (if given) do not count."""
+    import torch
+    launches = None if kernel is None else kernel.launches
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event(enable_timing=True)
+    mark = torch.cuda.Event(enable_timing=True)
+    mark.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    slept.record()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if kernel is not None:
+        kernel.launches = launches
+    sleep_ms = mark.elapsed_time(slept)
+    if not host_ms < sleep_ms:
+        raise RuntimeError(f"the host took {host_ms:.1f} ms to enqueue "
+                           f"{reps} calls, over the {sleep_ms:.1f} ms sleep")
+    return start.elapsed_time(end) / reps
 
 
 def _entry(name, src, replaces, err, ms, plain_ms, bound, lib_ms, card):
@@ -1618,8 +1671,200 @@ def phase_whisper(dev, kernels, card):
                              f"the CPU")
 
 
+# the fused-product kernels' checks, (T, d, ff or F, where the shape comes
+# from); the first of each list is the kernel's entry in the kernels line
+SWIGLU_CASES = ((256, 2048, 5632, "stablelm-1.6b MLP, a 256-token chunk"),
+                (4, 2048, 5632, "stablelm-1.6b MLP at decode"),
+                (80, 4096, 14336, "one mixtral-8x7b expert, C 80"),
+                (37, 96, 160, "ragged rows, k and column tails"),
+                (5, 96, 160, "few rows, k and column tails"))
+RMSNORM_MM_CASES = ((4, 2048, 100352, "stablelm-1.6b LM head at decode"),
+                    (256, 2048, 5632, "stablelm-1.6b MLP entry (norm, w1)"),
+                    (4, 4096, 32000, "mixtral-8x7b LM head at decode"),
+                    (37, 96, 160, "ragged rows, k and column tails"),
+                    (5, 96, 160, "few rows, k and column tails"))
+
+
+def _held_gemm(name, kernel, plain, args, lhs, rhs, label, **kw):
+    """One launch of a fused-product kernel (not counted) held against its
+    plain version on the same bf16 values, with the plain version's own
+    casts, within ``_gemm.gemm_limit`` (lhs @ rhs the rounded product the
+    output sums), and a second launch that must repeat it bit for bit;
+    returns the max |error|."""
+    import torch
+    from repro_torch.kernels import _gemm
+    launches = kernel.launches
+    out = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    kernel.launches = launches
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {label}: two launches on the same "
+                             f"inputs differ")
+    ref = plain(*args, **kw)
+    err, ratio = _gemm.gemm_excess(out, ref, lhs, rhs)
+    finite = bool(torch.isfinite(out.float()).all())
+    print(f"kernel {name} {label}: max_abs_err={err:.3e} max(|err| / "
+          f"limit)={ratio:.4f} (limit {_gemm.GEMM_REL:.2e}*|plain| + "
+          f"{_gemm.GEMM_SUM:.2e}*(|lhs|@|rhs|) + {_gemm.GEMM_ABS:.0e}) "
+          f"finite={finite}", flush=True)
+    if not finite or not ratio <= 1:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def _fused_kernels(dev, card):
+    """Both fused-product kernels at every shape of SWIGLU_CASES and
+    RMSNORM_MM_CASES, held as in ``_held_gemm`` and timed on the device
+    (``_device_ms``) beside their plain versions, their bounds and a
+    cuBLAS composition (a yardstick the port never calls; no one PyTorch
+    call computes either function)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm_matmul as krm
+    from repro_torch.kernels import swiglu as ksw
+    from repro_torch.models.common import rmsnorm
+    gen = np.random.default_rng(SEED + 5)
+
+    def rand(*shape, scale=1.0):
+        return (torch.tensor(gen.standard_normal(shape, np.float32),
+                             device=dev) * scale).to(torch.bfloat16)
+
+    def case(kernel, plain, compose, args, lhs, rhs, label, n_bytes, flops):
+        err = _held_gemm(kernel.__name__, kernel, plain, args, lhs, rhs,
+                         label)
+        ms = _device_ms(kernel, lambda: kernel(*args))
+        call_ms = _kernel_ms(kernel, lambda: kernel(*args))
+        plain_ms = _device_ms(None, lambda: plain(*args), reps=5)
+        comp_ms = _device_ms(None, compose)
+        bound_ms, bound_by = _roofline(n_bytes, flops)
+        print(f"kernel {kernel.__name__} {label}: ms={ms:.4f} (device; "
+              f"{call_ms:.4f} a call back to back through the wrapper) "
+              f"plain_ms={plain_ms:.4f} composition_ms={comp_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}, {n_bytes / 1e6:.1f} MB,"
+              f" {flops / 1e9:.2f} GFLOP) on {card}", flush=True)
+        return dict(shape=label, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                    composition_ms=comp_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err)
+
+    def entry(name, replaces, shapes):
+        """The kernels-line entry: the first shape's numbers, the largest
+        error over all shapes, and every shape's numbers."""
+        main = shapes[0]
+        e = _entry(name, f"src/repro_torch/csrc/{name}.cu", replaces,
+                   max(x["max_abs_err"] for x in shapes), main["ms"],
+                   main["plain_ms"], (main["bound_ms"], main["bound_by"]),
+                   None, card)
+        e.update(composition_ms=main["composition_ms"], shapes=shapes)
+        return e
+
+    shapes = []
+    for t, d, ff, what in SWIGLU_CASES:
+        x = rand(t, d)
+        w1, w3 = rand(d, ff, scale=d ** -0.5), rand(d, ff, scale=d ** -0.5)
+        w2 = rand(ff, d, scale=ff ** -0.5)
+        shapes.append(case(ksw.swiglu, ksw.swiglu_plain,
+                           lambda: (F.silu(x @ w1) * (x @ w3)) @ w2,
+                           [x, w1, w3, w2], ksw.swiglu_hidden(x, w1, w3), w2,
+                           f"T={t} d={d} ff={ff} ({what})",
+                           2 * (2 * t * d + 3 * d * ff), 6 * t * d * ff))
+        del x, w1, w3, w2
+    results = [(ksw.swiglu, entry("swiglu", "src/repro/kernels/swiglu.py:40",
+                                  shapes))]
+    shapes = []
+    for t, d, f, what in RMSNORM_MM_CASES:
+        x, wn = rand(t, d), 1.0 + rand(d, scale=0.1)
+        wp = rand(d, f, scale=d ** -0.5)
+        shapes.append(case(krm.rmsnorm_matmul, krm.rmsnorm_matmul_plain,
+                           lambda: rmsnorm(x, wn) @ wp, [x, wn, wp],
+                           rmsnorm(x, wn), wp, f"T={t} d={d} F={f} ({what})",
+                           2 * (t * d + d + d * f + t * f), 2 * t * d * f))
+        del x, wn, wp
+    results.append((krm.rmsnorm_matmul,
+                    entry("rmsnorm_matmul",
+                          "src/repro/kernels/rmsnorm_matmul.py:31", shapes)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_fused(dev, card):
+    """The reference's fused-op entry point (``kernels/ops.py``) on the
+    card: both kernels' checks (``_fused_kernels``), then the path:
+    full-width stablelm-1.6b (random weights from SEED), layer 0's
+    ``x + ops.swiglu_fused(rmsnorm(x, ln), w1, w3, w2)`` against the
+    port's unfused ``mlp_block`` and ``ops.rmsnorm_matmul_fused(x, lnf,
+    head)`` against ``lm_head``, at a decode batch [4, d] and a chunk
+    [1, 256, d], every launch counter set to 0 just before and read just
+    after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_matmul as krm
+    from repro_torch.kernels import swiglu as ksw
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import mlp_block
+
+    results = _fused_kernels(dev, card)
+    cfg = get_config("stablelm-1.6b")
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    p = {k: v[0] for k, v in params["stacks"]["blocks"]["l0"]["ffn"].items()}
+    gen = np.random.default_rng(SEED + 6)
+    inputs = [torch.tensor(gen.standard_normal(s, np.float32),
+                           device=dev).to(torch.bfloat16)
+              for s in ((4, cfg.d_model), (1, 256, cfg.d_model))]
+    path = (ksw.swiglu, krm.rmsnorm_matmul)
+    torch.cuda.synchronize()
+    for k in path:
+        k.launches = 0
+    outs = [(x + ops.swiglu_fused(rmsnorm(x, p["ln"], cfg.norm_eps),
+                                  p["w1"], p["w3"], p["w2"]),
+             ops.rmsnorm_matmul_fused(x, params["lnf"], params["head"],
+                                      eps=cfg.norm_eps).float())
+            for x in inputs]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in path}
+    print(f"fused path: {cfg.name} d={cfg.d_model} ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size}, launches {launches}", flush=True)
+    for (_, entry), k in zip(results, path):
+        entry["launches"] = launches[k.__name__]
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{k.__name__} never launched on the "
+                                 f"fused path")
+
+    def close(label, got, want):
+        # tests/test_kernels.py's oracle tolerance: the model's unfused
+        # path rounds x @ w1 and x @ w3 to bf16, the kernel keeps them fp32
+        got, want = got.float(), want.float()
+        atol = 0.03 * max(float(want.abs().max()), 1.0)
+        diff = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (diff <= 5e-2 * want.abs() + atol).all())
+        print(f"fused path {label}: max_abs_diff={float(diff.max()):.4e} "
+              f"(rtol 5e-2, atol {atol:.4f}) within={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"fused path {label}: outside tolerance")
+
+    for x, (mlp, logits) in zip(inputs, outs):
+        shape = tuple(x.shape)
+        close(f"{shape} x + swiglu_fused vs mlp_block", mlp,
+              mlp_block(p, x, cfg))
+        want = model.lm_head(params, x)
+        close(f"{shape} rmsnorm_matmul_fused vs lm_head", logits, want)
+        agree = torch.equal(logits.argmax(-1), want.argmax(-1))
+        print(f"fused path {shape}: max |delta logits| "
+              f"{float((logits - want).abs().max()):.4e}, greedy argmax "
+              f"agrees: {agree}", flush=True)
+    del params, p, inputs, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
 PHASES = ("kernels", "rolling", "engine", "mixtral", "contiguous", "reference",
-          "whisper")
+          "whisper", "fused")
 
 
 def main(argv=None) -> int:
@@ -1677,6 +1922,8 @@ def main(argv=None) -> int:
         phase_reference(dev)
     if "whisper" in phases:
         phase_whisper(dev, kernels, card)
+    if "fused" in phases:
+        kernels += phase_fused(dev, card)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)
     print(card)
     print(json.dumps({"kernels": [e for _, e in kernels]}))

@@ -349,9 +349,10 @@ def test_serve_cpu_default_is_monolithic_and_counts_no_launches():
 def test_port_runs_without_jax_or_the_reference():
     """``import repro_torch`` and CPU engine runs (chunked, monolithic,
     and monolithic then chunked over the int8 cache; mixtral-8x7b-smoke,
-    windowed MoE, chunked and monolithic), and whisper-small-smoke's
-    prefill and decode through the model API, load neither ``jax`` nor
-    any module of ``repro``."""
+    windowed MoE, chunked and monolithic), whisper-small-smoke's
+    prefill and decode through the model API, and both fused ops of
+    ``repro_torch.kernels.ops``, load neither ``jax`` nor any module of
+    ``repro``."""
     code = (
         "import sys\n"
         "from repro_torch.configs import get_config\n"
@@ -391,6 +392,12 @@ def test_port_runs_without_jax_or_the_reference():
         "[5]), 'positions': torch.tensor([2], dtype=torch.int32)})\n"
         "assert logits.shape == (1, 256) and bool(torch.isfinite(logits)"
         ".all())\n"
+        "from repro_torch.kernels import ops\n"
+        "x = torch.ones(2, 3, 32, dtype=torch.bfloat16)\n"
+        "w = torch.full((32, 48), 0.01, dtype=torch.bfloat16)\n"
+        "y = ops.swiglu_fused(x, w, w, w.T.contiguous())\n"
+        "z = ops.rmsnorm_matmul_fused(x, x[0, 0], w)\n"
+        "assert y.shape == (2, 3, 32) and z.shape == (2, 3, 48)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
