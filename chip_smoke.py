@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    of 4 right-padded prompts, S = 397) and at one GQA shape (g = 4, with
    decode contexts as short as one slot), holds it against its plain
    PyTorch version run in fp32 on the same inputs (|error| <=
-   KERNEL_REL * |plain| + KERNEL_ABS; a second launch must repeat the
+   KERNEL_REL * |plain| + KERNEL_ABS, ``kernels/_paged.py``; a second
+   launch must repeat the
    first bit for bit), and times kernel, plain version (bf16, as the
    port runs it) and, where one exists, one PyTorch call computing the
    same function (``scaled_dot_product_attention``; a yardstick the port
@@ -128,13 +129,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# kernel (bf16 in, fp32 inside, bf16 out) vs the plain version in fp32 on
-# the same values: |error| <= KERNEL_REL * |plain| + KERNEL_ABS, one bf16
-# step of the output (2^-7 relative; rounding moves it by half that) plus
-# fp32 summation-order noise.  Dropping one of n visible slots moves an
-# output by ~|v|/n, ~1e-3 at n = 1000: several steps of a typical output.
-KERNEL_REL = 2.0 ** -7
-KERNEL_ABS = 1e-5
+# the attention kernels' limit against their plain versions in fp32 on the
+# same values is the port's (KERNEL_REL, KERNEL_ABS in kernels/_paged.py,
+# shared with the tests): one bf16 step of the output plus fp32
+# summation-order noise
 LOGIT_TOL = 0.1        # smoke model logits, card vs CPU (bf16 matmuls)
 SLEEP_CYCLES = 50_000_000  # ~25-30 ms of device sleep ahead of timed calls
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
@@ -251,6 +249,7 @@ def _held(name, kernel, plain, args, label, **kw):
     in fp32 on the same values, and a second that must repeat it bit for
     bit; returns the max |error|."""
     import torch
+    from repro_torch.kernels._paged import KERNEL_ABS, KERNEL_REL
     launches = kernel.launches
     out = kernel(*args, **kw)
     again = kernel(*args, **kw)
@@ -316,17 +315,23 @@ def _device_ms(kernel, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _entry(name, src, replaces, err, ms, plain_ms, bound, lib_ms, card):
+def _entry(name, src, replaces, err, ms, plain_ms, bound, lib_ms, card,
+           call_ms=None):
     """Print a kernel's times beside its bound; its kernels-line entry
-    (``launches`` filled in by the engine runs)."""
+    (``launches`` filled in by the engine runs).  ``call_ms``: where ``ms``
+    is a device time, the back-to-back time through the wrapper."""
     bound_ms, bound_by = bound
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    call = "" if call_ms is None else f" call_ms={call_ms:.4f}"
+    print(f"kernel {name}: ms={ms:.4f}{call} plain_ms={plain_ms:.4f} "
           f"library_ms={lib} bound_ms={bound_ms:.5f} ({bound_by}) on {card}",
           flush=True)
-    return dict(name=name, route="cuda", source=src, replaces=replaces,
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    if call_ms is not None:
+        entry["call_ms"] = call_ms
+    return entry
 
 
 def _quant(case):
@@ -526,6 +531,53 @@ def _rolling_visible(case):
     return old, span
 
 
+# the tiled rolling kernels' (rows 6 and 11) extra held cases at
+# mixtral's widths, W = 4096: a mixed step, 1-token decode rows beside
+# chunks of 91 tokens (from off = 0) and 37 (runs that are not a multiple
+# of the 16-token query tile), bucket padding; then the same step with the
+# rows interleaved in seq_idx
+MIXED_SPANS = [(0, 91), (4095, 1), (5000, 37), (9000, 1), (300, 1),
+               (4060, 91)]
+MIXED_PAD = 5
+
+
+def _interleave(case):
+    """``case`` with its valid tokens reordered round robin over the rows
+    (the bucket padding stays last): each row's tokens lie apart."""
+    import torch
+    c, n = case["np"], case["n_valid"]
+    seq = c["seq"][:n]
+    rank = np.zeros(n, np.int64)
+    for r in np.unique(seq):
+        rank[seq == r] = np.arange(int((seq == r).sum()))
+    idx = np.concatenate([np.lexsort((seq, rank)),
+                          np.arange(n, len(c["seq"]))])
+    out = dict(case)
+    it = torch.tensor(idx, device=case["q"].device)
+    for k in ("q", "k_span", "v_span", "positions", "rows", "offsets"):
+        out[k] = case[k][it].contiguous()
+    out["np"] = dict(c, pos=c["pos"][idx], seq=c["seq"][idx],
+                     offs=c["offs"][idx])
+    return out
+
+
+def _tiled_cases(spans, spans64):
+    """(window, spans, pad, kind) of a rolling span kernel's held cases:
+    the main case first (timed), W = 64, then, for the tiled bf16 kernels
+    (rows 6 and 11), the mixed and interleaved steps."""
+    return [(4096, spans, 0, "main"), (64, spans64, 4, "wrapped"),
+            (4096, MIXED_SPANS, MIXED_PAD, "mixed"),
+            (4096, MIXED_SPANS, MIXED_PAD, "interleaved")]
+
+
+def _tiled_times(kernel, fn, sdpa_fn):
+    """(device ms, ms back to back through the wrapper, SDPA device ms) of
+    a tiled rolling kernel: at ~0.1 ms a call's host work (0.02-0.05 ms)
+    would be part of a back-to-back figure."""
+    return (_device_ms(kernel, fn), _kernel_ms(kernel, fn),
+            _device_ms(None, sdpa_fn))
+
+
 def _roofline(n_bytes, bf16_ops, int8_ops=0):
     """(least ms, what bounds it): bytes over the memory rate against
     operations over the tensor-core rate of their type."""
@@ -605,6 +657,9 @@ def phase_rolling_kernels(dev, card):
                                               quantize_kv)
 
     gen = np.random.default_rng(SEED + 2)
+    # the tiled kernels' extra cases draw apart: the other cases keep their
+    # inputs from run to run
+    tgen = np.random.default_rng(SEED + 8)
     h, kv, hd, bs = 32, 8, 128, 16
     # a 256-token chunk over 4 rows: a short row, a span crossing W, two
     # wrapped rows; then the same widths at W = 64 with bucket padding
@@ -623,8 +678,12 @@ def phase_rolling_kernels(dev, card):
              "src/repro_torch/csrc/paged_span_attention_rolling_quant.cu",
              "src/repro/kernels/span_attention.py:761")):
         entry = None
-        for window, sp, pad in ((4096, spans, 0), (64, spans64, 4)):
-            case = _rolling_case(gen, sp, window, h, kv, hd, bs, dev, pad)
+        for window, sp, pad, kind in _tiled_cases(spans, spans64)[
+                :2 if quant else 4]:
+            case = _rolling_case(gen if kind in ("main", "wrapped") else tgen,
+                                 sp, window, h, kv, hd, bs, dev, pad)
+            if kind == "interleaved":
+                case = _interleave(case)
             cache = [case["k"], case["v"]]
             if quant:
                 (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
@@ -633,7 +692,7 @@ def phase_rolling_kernels(dev, card):
                     case["tables"], case["positions"], case["rows"],
                     case["offsets"], case["n_valid"]]
             kw = {"window": window}
-            label = (f"W={window} H={h} Kv={kv} hd={hd} "
+            label = (f"{kind} W={window} H={h} Kv={kv} hd={hd} "
                      f"T={case['q'].shape[0]} n_valid={case['n_valid']}")
             if quant:
                 width = case["tables"].shape[1] * bs
@@ -642,16 +701,21 @@ def phase_rolling_kernels(dev, card):
             if entry is not None:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
-            lib_ms = None
-            if not quant:
-                sdpa = _rolling_sdpa_args(case, h, hd)
-                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True), reps=20)
-                del sdpa
-            entry = _entry(name, src, replaces, err, ms, plain_ms,
-                           _rolling_bound(case, h, hd, quant), lib_ms, card)
+            bound = _rolling_bound(case, h, hd, quant)
+            if quant:
+                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                               None, card)
+                continue
+            sdpa = _rolling_sdpa_args(case, h, hd)
+            ms, call_ms, lib_ms = _tiled_times(
+                kernel, lambda: kernel(*args, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True))
+            del sdpa
+            entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                           lib_ms, card, call_ms)
         results.append((kernel, entry))
 
     for name, kernel, plain, quant, src, replaces in (
@@ -826,6 +890,7 @@ def phase_contiguous_kernels(dev, card):
     from repro_torch.models.attention import kv_tile, quantize_kv
 
     gen = np.random.default_rng(SEED + 4)
+    tgen = np.random.default_rng(SEED + 9)     # as in the rolling phase
     quant = lambda c: [*quantize_kv(c["k"]), *quantize_kv(c["v"])]
     results = []
 
@@ -908,15 +973,19 @@ def phase_contiguous_kernels(dev, card):
              "src/repro_torch/csrc/span_attention_rolling_quant.cu",
              "src/repro/kernels/span_attention.py:456")):
         entry = None
-        for window, sp, pad in ((4096, spans, 0), (64, spans64, 4)):
-            case = _row_rolling_case(gen, sp, window, row_perm, h, kv, hd,
-                                     dev, pad)
+        for window, sp, pad, kind in _tiled_cases(spans, spans64)[
+                :2 if q8 else 4]:
+            case = _row_rolling_case(
+                gen if kind in ("main", "wrapped") else tgen, sp, window,
+                row_perm, h, kv, hd, dev, pad)
+            if kind == "interleaved":
+                case = _interleave(case)
             cache = quant(case) if q8 else [case["k"], case["v"]]
             args = [case["q"], *cache, case["k_span"], case["v_span"],
                     case["positions"], case["rows"], case["offsets"],
                     case["n_valid"]]
             kw = {"window": window}
-            label = (f"W={window} H={h} Kv={kv} hd={hd} "
+            label = (f"{kind} W={window} H={h} Kv={kv} hd={hd} "
                      f"T={case['q'].shape[0]} n_valid={case['n_valid']}")
             if q8:
                 label += f" p-tile={kv_tile(512, window)}"
@@ -924,18 +993,23 @@ def phase_contiguous_kernels(dev, card):
             if entry is not None:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
-            lib_ms = None
-            if not q8:
-                sdpa = _rolling_sdpa_args(
-                    case, h, hd, views=_row_views(case))
-                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True), reps=20)
-                del sdpa
-            entry = _entry(name, src, replaces, err, ms, plain_ms,
-                           _rolling_bound(case, h, hd, q8), lib_ms, card)
+            bound = _rolling_bound(case, h, hd, q8)
+            if q8:
+                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                               None, card)
+                continue
+            sdpa = _rolling_sdpa_args(case, h, hd, views=_row_views(case))
+            ms, call_ms, lib_ms = _tiled_times(
+                kernel, lambda: kernel(*args, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    *sdpa[:3], attn_mask=sdpa[3], enable_gqa=True))
+            del sdpa
+            entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
+                           lib_ms, card, call_ms)
         results.append((kernel, entry))
+    _rows_equal_pages(tgen, h, kv, hd, spans, dev)
 
     for name, kernel, plain, q8, src, replaces in (
             ("contiguous_decode_attention_rolling",
@@ -987,6 +1061,41 @@ def phase_contiguous_kernels(dev, card):
                            lib_ms, card)
         results.append((kernel, entry))
     return results
+
+
+def _rows_equal_pages(gen, h, kv, hd, spans, dev):
+    """Row 11 over rows must give row 6's bits over pages on one logical
+    cache whose table width nb * bs is the row width S = W (the two share
+    the tiled body and its tile order): the main and the mixed steps."""
+    import torch
+    from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import gather_paged_cache
+    window, bs = 4096, 16
+    wrappers = (ksa.paged_span_attention_rolling, ksa.span_attention_rolling)
+    launches = [w.launches for w in wrappers]
+    for kind, sp, pad in (("main", spans, 0),
+                          ("mixed", MIXED_SPANS, MIXED_PAD)):
+        case = _rolling_case(gen, sp, window, h, kv, hd, bs, dev, pad)
+        assert case["tables"].shape[1] * bs == window
+        rows = [gather_paged_cache(case[n], case["tables"]).contiguous()
+                for n in "kv"]
+        span = (case["k_span"], case["v_span"])
+        idx = (case["positions"], case["rows"], case["offsets"],
+               case["n_valid"])
+        paged = ksa.paged_span_attention_rolling(
+            case["q"], case["k"], case["v"], *span, case["tables"], *idx,
+            window=window)
+        contiguous = ksa.span_attention_rolling(case["q"], *rows, *span,
+                                                *idx, window=window)
+        torch.cuda.synchronize()
+        equal = torch.equal(paged, contiguous)
+        print(f"kernel span_attention_rolling over rows == "
+              f"paged_span_attention_rolling over pages ({kind}, S = nb * bs "
+              f"= {window}): {equal}", flush=True)
+        if not equal:
+            raise AssertionError("rows 11 and 6 differ on one logical cache")
+    for w, n in zip(wrappers, launches):
+        w.launches = n
 
 
 def _engine(engine_cls, params, model, chunk, max_seq_len=640, max_batch=4,

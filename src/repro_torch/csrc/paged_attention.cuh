@@ -1,6 +1,8 @@
 // Shared body of the port's bf16 attention kernels, paged and contiguous
-// (paged_span_attention.cu, paged_span_attention_rolling.cu,
-// span_attention.cu, span_attention_rolling.cu, decode_attention.cu).
+// (paged_span_attention.cu, span_attention.cu, decode_attention.cu; the
+// int8 kernels' fresh span, through paged_attention_quant.cuh).  The bf16
+// rolling span kernels have their own tiled body
+// (span_attention_tiled.cuh); Rolling<...> below has no user left.
 //
 // One thread block computes the attention of ONE query token for the g
 // query heads that share ONE kv head.  It folds one or more sources of

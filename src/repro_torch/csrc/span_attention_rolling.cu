@@ -18,60 +18,81 @@
 //      the same row, at or before pos, inside the window, and u < n_valid
 //      (bucket padding duplicates the last valid token).
 //
-// Grid: one block per (token, kv head).  The body of
-// paged_span_attention_rolling.cu over paged::RowRollingSlots instead of
-// the table.  Sources, bound and design: paged_attention.cuh.
-#include "paged_attention.cuh"
+// The body of paged_span_attention_rolling.cu over tiled::ContiguousRow
+// instead of the table (with nb * bs == S the two give identical bits).
+// Body, grid, bound and design: span_attention_tiled.cuh.
+#include "span_attention_tiled.cuh"
 
-__global__ void __launch_bounds__(paged::kThreads)
+template <int HD>
+__global__ void __launch_bounds__(tiled::kThreads)
 span_attention_rolling_kernel(
-    const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_cache,
-    const __nv_bfloat16* __restrict__ v_cache,
-    const __nv_bfloat16* __restrict__ k_span,
-    const __nv_bfloat16* __restrict__ v_span,
-    const int* __restrict__ positions, const int* __restrict__ seq_idx,
-    const int* __restrict__ offsets, __nv_bfloat16* __restrict__ out, int T,
-    int H, int Kv, int hd, int R, int S, int tile, int window, int n_valid,
-    float scale) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.x, kh = blockIdx.y;
-  const int g = H / Kv;
-  const int row = seq_idx[t], pos = positions[t], off = offsets[t];
-  // a corrupt batch fails loudly
-  assert(row >= 0 && row < R && pos >= off && off >= 0);
-  const paged::State s = paged::carve(smem, g, hd, tile);
-  const int head0 = kh * g;
-  paged::init(q + ((size_t)t * H + head0) * hd, g, hd, s);
-  paged::RowRollingSlots old{{k_cache, v_cache, row, S, Kv, kh, hd},
-                             off, pos, window, S};
-  paged::fold(old, min(off, S), g, hd, tile, scale, s);
-  paged::FreshSpan fresh{k_span, v_span, positions, seq_idx, row, pos,
-                         window, Kv, kh, hd};
-  paged::fold(fresh, min(n_valid, T), g, hd, tile, scale, s);
-  paged::finish(out + ((size_t)t * H + head0) * hd, g, hd, s);
+    const tiled::bf16* __restrict__ q, const tiled::bf16* __restrict__ k_cache,
+    const tiled::bf16* __restrict__ v_cache,
+    const tiled::bf16* __restrict__ k_span,
+    const tiled::bf16* __restrict__ v_span, const int* __restrict__ positions,
+    const int* __restrict__ offsets, const int* __restrict__ plan,
+    tiled::bf16* __restrict__ out, int T, int H, int Kv, int lg, int R, int S,
+    int window, int n_valid, float scale) {
+  extern __shared__ __align__(16) unsigned char rolling_smem[];
+  const int tq = tiled::kRows >> lg;
+  const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, R, tq);
+  if ((int)blockIdx.x >= *p.n_tiles) return;
+  tiled::ContiguousRow src{k_cache, v_cache, p.tiles[3 * blockIdx.x], S, Kv,
+                           (int)blockIdx.y};
+  tiled::attend<HD>(src, q, k_span, v_span, positions, offsets, plan, out, T,
+                    H, Kv, lg, R, S, window, n_valid, scale, rolling_smem);
+}
+
+template <int HD>
+static int launch(const void* q, const void* k_cache, const void* v_cache,
+                  const void* k_span, const void* v_span,
+                  const void* positions, const void* offsets, void* plan,
+                  void* out, int T, int H, int Kv, int lg, int R, int S,
+                  int window, int n_valid, float scale, cudaStream_t stream) {
+  const size_t smem = tiled::Layout<HD>::bytes(S, T, 0);
+  auto kernel = span_attention_rolling_kernel<HD>;
+  cudaError_t err = tiled::prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiled::max_tiles(T, R, tiled::kRows >> lg), Kv);
+  kernel<<<grid, tiled::kThreads, smem, stream>>>(
+      (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
+      (const tiled::bf16*)v_cache, (const tiled::bf16*)k_span,
+      (const tiled::bf16*)v_span, (const int*)positions, (const int*)offsets,
+      (const int*)plan, (tiled::bf16*)out, T, H, Kv, lg, R, S, window,
+      n_valid, scale);
+  return (int)cudaGetLastError();
 }
 
 // q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16 (before the span's
 // scatter); k_span/v_span [T, Kv, hd] bf16; positions/seq_idx/offsets [T]
-// int32; out [T, H*hd] bf16.
+// int32; plan: int32 workspace of plan_ints entries (tiled::plan_ints(T,
+// R, 64 / g)); out [T, H*hd] bf16.  H / Kv in {1, 2, 4, 8}, hd in {16,
+// 32, 64, 128}.
 extern "C" int span_attention_rolling(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_span, const void* v_span, const void* positions,
-    const void* seq_idx, const void* offsets, void* out, int T, int H,
-    int Kv, int hd, int R, int S, int tile, int window, int n_valid,
-    float scale, void* stream) {
+    const void* seq_idx, const void* offsets, void* plan, void* out, int T,
+    int H, int Kv, int hd, int R, int S, int window, int n_valid,
+    long long plan_ints, float scale, void* stream) {
   if (T == 0) return 0;
-  if (window < 1 || tile < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * paged::smem_floats(H / Kv, hd, tile);
-  cudaError_t err = paged::prepare_smem(span_attention_rolling_kernel, smem);
+  const int lg = tiled::log2_group(H, Kv);
+  if (window < 1 || lg < 0 || R < 1 || S < 1 ||
+      plan_ints < tiled::plan_ints(T, R, tiled::kRows >> lg))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
+      (const int*)seq_idx, T, R, tiled::kRows >> lg, (int*)plan);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  span_attention_rolling_kernel<<<dim3(T, Kv), paged::kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-      (const __nv_bfloat16*)v_cache, (const __nv_bfloat16*)k_span,
-      (const __nv_bfloat16*)v_span, (const int*)positions,
-      (const int*)seq_idx, (const int*)offsets, (__nv_bfloat16*)out, T, H, Kv,
-      hd, R, S, tile, window, n_valid, scale);
-  return (int)cudaGetLastError();
+#define ROLLING_LAUNCH(HD)                                                   \
+  return launch<HD>(q, k_cache, v_cache, k_span, v_span, positions, offsets, \
+                    plan, out, T, H, Kv, lg, R, S, window, n_valid, scale, s)
+  switch (hd) {
+    case 16: ROLLING_LAUNCH(16);
+    case 32: ROLLING_LAUNCH(32);
+    case 64: ROLLING_LAUNCH(64);
+    case 128: ROLLING_LAUNCH(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ROLLING_LAUNCH
 }

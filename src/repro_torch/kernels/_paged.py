@@ -15,6 +15,45 @@ import torch
 
 TILE = 64                   # KV slots staged in shared memory per step
 
+# A kernel (bf16 in, fp32 inside, bf16 out) against its plain version run
+# in fp32 on the same values: |kernel - plain| <= KERNEL_REL * |plain| +
+# KERNEL_ABS, one bf16 step of the output (2^-7 relative; rounding moves it
+# by half that) plus fp32 summation-order noise.  Dropping one of n
+# visible slots moves an output by ~|v|/n, ~1e-3 at n = 1000: several
+# steps of a typical output.  chip_smoke.py holds every attention kernel to
+# it; tests/test_torch_rolling_tiles.py shows that the tiled rolling body
+# needs its probabilities as bf16 hi + lo to stay inside it.
+KERNEL_REL = 2.0 ** -7
+KERNEL_ABS = 1e-5
+
+# The tiled rolling span body (csrc/span_attention_tiled.cuh): blocks of
+# QUERY_ROWS query rows, 64 / g tokens x g heads of one kv head
+QUERY_ROWS = 64
+TILED_GROUPS = (1, 2, 4, 8)         # g = H / Kv
+TILED_WIDTHS = (16, 32, 64, 128)    # hd
+
+
+def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
+    """The tiled body's shapes, for a CUDA call: g = H / Kv in
+    TILED_GROUPS, hd in TILED_WIDTHS, 16-byte aligned data (cp.async).
+    Raises ValueError; the caller never falls back to the plain version."""
+    h, hd = q.shape[1], q.shape[2]
+    if h // kv_heads not in TILED_GROUPS or hd not in TILED_WIDTHS:
+        raise ValueError(f"the tiled rolling kernel takes g = H / Kv in "
+                         f"{TILED_GROUPS} and hd in {TILED_WIDTHS}, got g = "
+                         f"{h // kv_heads}, hd = {hd}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the tiled rolling kernel needs 16-byte aligned "
+                         "inputs")
+
+
+def plan_ints(t: int, rows: int, g: int) -> int:
+    """int32 entries of the tiled body's planning workspace for T = t
+    tokens over ``rows`` cache (or table) rows (tiled::plan_ints)."""
+    tq = QUERY_ROWS // g
+    max_tiles = -(-t // tq) + min(rows, t)
+    return 1 + 3 * max_tiles + 2 * t + 3 * rows
+
 
 def _check_shapes(q: torch.Tensor, cache_shape, block_tables,
                   index_vectors) -> None:

@@ -17,7 +17,10 @@ CUDA kernels, paged:
   (``paged_span_attention_rolling``) for sliding-window models, whose
   rolling cache keeps position p at slot p % W: two sources, the old cache
   through the table and the span's own fresh K/V, under one softmax,
-  attended before the caller scatters the span.
+  attended before the caller scatters the span.  Its body (and row 11's,
+  over rows) is ``csrc/span_attention_tiled.cuh``: a planning pass groups
+  the span's tokens by row, then one block computes 64 query rows (64 / g
+  tokens of one row x g heads) of one kv head on the tensor cores.
 - ``csrc/paged_span_attention_rolling_quant.cu`` replaces
   ``repro/kernels/span_attention.py:761``
   (``paged_span_attention_rolling_quant``): the same over the int8
@@ -184,7 +187,8 @@ paged_span_attention_quant.launches = 0
 def _rolling_kernel():
     return _build.load("paged_span_attention_rolling",
                        "paged_span_attention_rolling",
-                       [_P] * 10 + [_I] * 11 + [ctypes.c_float, _P])
+                       [_P] * 11 + [_I] * 10
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 @functools.cache
@@ -247,7 +251,10 @@ def paged_span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
     span afterwards.  q [T, H, hd]; caches [n_blocks, bs, Kv, hd];
     k_span/v_span [T, Kv, hd]; block_tables [B, nb] int32;
     positions/seq_idx/offsets [T] int32 -> [T, H*hd].  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (bf16 only)."""
+    the plain version; CUDA tensors launch the tiled kernel (bf16, g = H /
+    Kv in {1, 2, 4, 8}, hd in {16, 32, 64, 128}; other shapes raise
+    ValueError), a planning pass and the main kernel, with no host
+    synchronisation."""
     _paged.check(q, k_cache, v_cache, block_tables,
                  {"positions": positions, "seq_idx": seq_idx})
     _check_rolling(q, k_span, v_span, offsets, n_valid, window)
@@ -258,13 +265,17 @@ def paged_span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
     t, h, hd = q.shape
     n_blocks, bs, kv = k_cache.shape[:3]
     b, nb = block_tables.shape
+    _paged.check_tiled(q, kv, (q, k_cache, v_cache, k_span, v_span))
+    plan = torch.empty(_paged.plan_ints(t, b, h // kv), dtype=torch.int32,
+                       device=q.device)
     out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
     rc = _rolling_kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_span.data_ptr(), v_span.data_ptr(), block_tables.data_ptr(),
         positions.data_ptr(), seq_idx.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), t, h, kv, hd, bs, b, nb, n_blocks, _paged.TILE,
-        window, int(n_valid), hd ** -0.5, _paged.stream_ptr(q))
+        plan.data_ptr(), out.data_ptr(), t, h, kv, hd, bs, b, nb, n_blocks,
+        window, int(n_valid), plan.numel(), hd ** -0.5,
+        _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"paged_span_attention_rolling launch failed: "
                            f"CUDA error {rc}")
@@ -350,7 +361,8 @@ def _rows_quant_kernel():
 @functools.cache
 def _rows_rolling_kernel():
     return _build.load("span_attention_rolling", "span_attention_rolling",
-                       [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
+                       [_P] * 10 + [_I] * 8
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 @functools.cache
@@ -455,7 +467,9 @@ def span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
     span's own fresh K/V (same row, causal, inside the window, index <
     ``n_valid``) are attended within ``window``.  The caches are read
     only: the caller scatters the span afterwards.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16 only)."""
+    plain version; CUDA tensors launch the tiled kernel (the shapes of
+    :func:`paged_span_attention_rolling`; with the table's nb * bs == S it
+    gives the same bits)."""
     _paged.check(q, k_cache, v_cache, None,
                  {"positions": positions, "seq_idx": seq_idx})
     _check_rolling(q, k_span, v_span, offsets, n_valid, window)
@@ -463,11 +477,23 @@ def span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
         return span_attention_rolling_plain(
             q, k_cache, v_cache, k_span, v_span, positions, seq_idx, offsets,
             n_valid, window=window)
+    t, h, hd = q.shape
     r, s, kv = k_cache.shape[:3]
-    return _launch(span_attention_rolling, _rows_rolling_kernel(), q,
-                   (q, k_cache, v_cache, k_span, v_span, positions, seq_idx,
-                    offsets),
-                   (kv, q.shape[2], r, s, _paged.TILE, window, int(n_valid)))
+    _paged.check_tiled(q, kv, (q, k_cache, v_cache, k_span, v_span))
+    plan = torch.empty(_paged.plan_ints(t, r, h // kv), dtype=torch.int32,
+                       device=q.device)
+    out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
+    rc = _rows_rolling_kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_span.data_ptr(), v_span.data_ptr(), positions.data_ptr(),
+        seq_idx.data_ptr(), offsets.data_ptr(), plan.data_ptr(),
+        out.data_ptr(), t, h, kv, hd, r, s, window, int(n_valid),
+        plan.numel(), hd ** -0.5, _paged.stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"span_attention_rolling launch failed: CUDA "
+                           f"error {rc}")
+    _paged.count_launch(span_attention_rolling)
+    return out
 
 
 span_attention_rolling.launches = 0
