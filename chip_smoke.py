@@ -21,7 +21,15 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    same function (``scaled_dot_product_attention``; a yardstick the port
    never calls) beside the kernel's bound.  The int8 span kernel runs at
    both p-quantization tiles: one page (the Pallas kernel's) and the
-   engine's (the reference engine's kv_block = 512).
+   engine's (the reference engine's kv_block = 512).  The bf16 decode
+   kernels (rows 2, 2c, 2r, 2cr, here and in 3 and 6) are timed on the
+   device alone (``_device_ms``, beside SDPA's device time and the
+   back-to-back ``call_ms``).  The int8 decode kernels (here and in 3 and
+   6) are held to the limit plus ``kernels/_paged.py``'s flip term (one
+   quantized-probability step at each slot on a rounding boundary), on
+   their cases and on QUANT_DRAWS extra draws of their own; where the
+   limit without the term is exceeded, the slots whose quantized
+   probability differs are printed.
 3. rolling — the sliding-window kernels at mixtral-8x7b's widths (H 32,
    Kv 8, hd 128): rolling span attention in bf16 and int8 (a 256-token
    chunk over rows on both sides of W = 4096), the rolling modes of both
@@ -53,17 +61,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    and timed as in 2 and 3 (rows 9-12 of PERF.md's kernel table and the
    contiguous modes of both decode kernels, at stablelm's shapes over
    rows of S = 640 and at mixtral's over rolling rows of W = 4096 and
-   64); then, right after the engine phase and with its weights and
-   prompts, stablelm-1.6b over contiguous rows on its four paths, and,
-   right after the mixtral phase, mixtral-8x7b over rolling rows of W
-   slots, chunked and monolithic in bf16 and chunked in int8.  On each
-   path every request must finish, SiPipe's greedy schedules and streams
-   must equal NaivePPEngine's, the contiguous kernels must launch and no
-   paged kernel may; the bf16 greedy streams must equal the paged paths'
-   from the same run (the kernels share their bodies), and the int8 ones
-   are printed beside them with the largest logit difference (the int8
-   span's p-tile is S's over rows and the table's when paged, so there the
-   two layouts compute different functions).
+   64), and the split decode body's extra cases (glm4-9b's widths, g 16;
+   contexts of 1 slot and on either side of one and two 512-slot splits),
+   each over pages and over rows of one logical cache, where the two
+   kernels must give the same bits; then, right after the engine phase
+   and with its weights and prompts, stablelm-1.6b over contiguous rows
+   on its four paths, and, right after the mixtral phase, mixtral-8x7b
+   over rolling rows of W slots, chunked and monolithic in bf16 and
+   chunked in int8. On each path every request must finish, SiPipe's
+   greedy schedules and streams must equal NaivePPEngine's, the
+   contiguous kernels must launch and no paged kernel may; the bf16
+   greedy streams must equal the paged paths' from the same run (the
+   kernels share their bodies), and the int8 ones are printed beside them
+   with the largest logit difference (the int8 span's p-tile is S's over
+   rows and the table's when paged, so there the two layouts compute
+   different functions).
 7. reference — smoke-size models' logits on the card must agree with the
    same models on the CPU: chunk steps then a decode step, and a prefill
    then a decode step, with a bf16 and with an int8 cache, for
@@ -272,6 +284,90 @@ def _held(name, kernel, plain, args, label, **kw):
     return err
 
 
+def _held_quant_decode(name, kernel, plain, args, label, window=0):
+    """:func:`_held` for the int8 decode modes (rows 2b, 2bc, 2br, 2bcr):
+    their limit adds ``kernels/_paged.py``'s flip term (one quantized
+    probability step at each slot whose plain x = p * vs / scale lies within
+    its delta of a rounding half-integer).  Where the limit without the term
+    is exceeded, prints the element, the slots whose quantized probability
+    differs between the kernel (read back from its scratch buffer, which
+    holds them after the call) and the plain version, and the plain x there.
+    args: q, k8, ks, v8, vs, tables or rows, positions."""
+    import torch
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels._paged import (KERNEL_ABS, KERNEL_REL,
+                                            quant_decode_x, quant_flip_term)
+    from repro_torch.models.attention import gather_paged_cache
+    q, k8, ks, v8, vs, index, positions = args
+    paged = index.dim() == 2
+    b, h, hd = q.shape
+    width = index.shape[1] * k8.shape[1] if paged else k8.shape[1]
+    call = kda._decode_quant if paged else kda._rows_decode_quant
+    scratch = torch.empty((b, h, width), dtype=torch.float32, device=q.device)
+    launches = kernel.launches
+    out = call(kernel, *args, window, scratch=scratch)
+    again = call(kernel, *args, window)
+    torch.cuda.synchronize()
+    kernel.launches = launches
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {label}: two launches on the same "
+                             f"inputs differ")
+    ref = plain(q.float(), *args[1:], rolling_window=window)
+    if paged:
+        views = [gather_paged_cache(c, index) for c in (k8, ks, v8, vs)]
+    else:
+        views = [c[index.long()] for c in (k8, ks, v8, vs)]
+    term = quant_flip_term(q, *views, positions, rolling_window=window)
+    diff = (out.float() - ref).abs()
+    over = diff - KERNEL_REL * ref.abs()
+    err, bare = float(diff.max()), float(over.max())
+    excess = float((over - term).max())
+    finite = bool(torch.isfinite(out.float()).all())
+    print(f"kernel {name} {label}: max_abs_err={err:.3e} "
+          f"max(|err| - {KERNEL_REL:.2e}*|plain|)={bare:.3e}, less the flip "
+          f"term {excess:.3e} (tol {KERNEL_ABS:.0e}; term > 0 at "
+          f"{int((term > 0).sum())} elements) finite={finite}", flush=True)
+    if bare > KERNEL_ABS:
+        i = int(over.argmax())
+        bi, head, d = i // (h * hd), i % (h * hd) // hd, i % hd
+        g = h // k8.shape[2]
+        x, delta, _ = quant_decode_x(q, views[0], views[1], views[3],
+                                     positions, rolling_window=window)
+        pos = int(positions[bi])
+        n = min(min(pos + 1, window) if window else pos + 1, width)
+        at = (bi, head // g, head % g)
+        xr, dr = x[at][:n], delta[at][:n]
+        mine = scratch[bi, head, :n]
+        theirs = torch.round(xr).clamp(-127, 127)
+        apart = (mine != theirs).nonzero().flatten().tolist()
+        print(f"  element (b={bi}, head={head}, d={d}): p8 differs at "
+              f"{len(apart)} of {n} slots", flush=True)
+        for s in apart[:10]:
+            ax = float(xr[s].abs())
+            print(f"  element (b={bi}, head={head}, d={d}): p8 at slot {s}: "
+                  f"kernel {float(mine[s]):.0f}, plain {float(theirs[s]):.0f}"
+                  f"; plain x = {float(xr[s]):.9f}, "
+                  f"{abs(ax - np.floor(ax) - 0.5):.3e} from a half-integer "
+                  f"(delta {float(dr[s]):.3e})",
+                  flush=True)
+    if not finite or not excess <= KERNEL_ABS:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+QUANT_DRAWS = 6   # extra draws of each int8 decode mode (row 2bcr's check)
+
+
+def _quant_decode_draws(name, kernel, plain, make, window=0):
+    """The int8 decode mode's extra held cases: QUANT_DRAWS draws of its
+    inputs (``make(gen)`` -> args) from a generator of their own, so the
+    other cases keep theirs."""
+    gen = np.random.default_rng(SEED + 10)
+    for i in range(QUANT_DRAWS):
+        _held_quant_decode(name, kernel, plain, make(gen),
+                           f"draw {i + 1} of {QUANT_DRAWS}", window)
+
+
 def _kernel_ms(kernel, fn, reps=50):
     """Kernel time; the timing launches do not count."""
     launches = kernel.launches
@@ -341,6 +437,14 @@ def _quant(case):
     return [case["q"], k8, ks, v8, vs, case["tables"], case["positions"]]
 
 
+def _row_quant(case):
+    """The contiguous case's int8 decode arguments (its cache rows
+    quantized as the engine stores them)."""
+    from repro_torch.models.attention import quantize_kv
+    (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
+    return [case["q"], k8, ks, v8, vs, case["rows"], case["positions"]]
+
+
 def phase_kernels(dev, gen, card):
     import torch
     import torch.nn.functional as F
@@ -383,13 +487,19 @@ def phase_kernels(dev, gen, card):
             if kv != h:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args))
             plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
             q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode)
-            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=m4, enable_gqa=True), reps=20)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, enable_gqa=True)
+            call_ms = None
+            if decode:              # row 2: device times (a split body)
+                ms, call_ms, lib_ms = _tiled_times(
+                    kernel, lambda: kernel(*args), sdpa)
+            else:
+                ms = _kernel_ms(kernel, lambda: kernel(*args))
+                lib_ms = _time_ms(sdpa, reps=20)
             entry = _entry(name, src, replaces, err, ms, plain_ms,
-                           _bound(case, h, hd), lib_ms, card)
+                           _bound(case, h, hd), lib_ms, card, call_ms)
         results.append((kernel, entry))
 
     # the kernels of monolithic prefill and of the int8 cache draw their
@@ -456,7 +566,10 @@ def phase_kernels(dev, gen, card):
                 kw = {} if tile is None else {"kv_block": tile}
                 label = f"H={h} Kv={kv} hd={hd}" + (
                     "" if tile is None else f" p-tile={kv_tile(tile, width)}")
-                err = _held(name, kernel, plain, args, label, **kw)
+                if decode:
+                    err = _held_quant_decode(name, kernel, plain, args, label)
+                else:
+                    err = _held(name, kernel, plain, args, label, **kw)
                 if entry is not None:
                     entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if kv != h:
@@ -472,6 +585,11 @@ def phase_kernels(dev, gen, card):
                 entry = _entry(name, src, replaces, err, ms, plain_ms,
                                _bound(case, h, hd, quant=True), None, card)
         results.append((kernel, entry))
+    _quant_decode_draws(
+        "paged_decode_attention_quant", kda.paged_decode_attention_quant,
+        kda.paged_decode_attention_quant_plain,
+        lambda g: _quant(_paged_case(g, g.integers(100, 1001, 8) - 1,
+                                     np.arange(8), 8, h, h, hd, bs, dev)))
     return results
 
 
@@ -743,12 +861,15 @@ def phase_rolling_kernels(dev, card):
             kw = {"window": window}
             pkw = {"rolling_window": window}
             pl = lambda *a, **_: plain(*a, **pkw)
-            err = _held(name, kernel, pl, args,
-                        f"W={window} B=8 contexts 100-9000", **kw)
+            label = f"W={window} B=8 contexts 100-9000"
+            if quant:
+                err = _held_quant_decode(name, kernel, plain, args, label,
+                                         window)
+            else:
+                err = _held(name, kernel, pl, args, label, **kw)
             if entry is not None:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             plain_ms = _time_ms(lambda: pl(*args), reps=3, warmup=1)
             vis = np.minimum(case["np"]["pos"] + 1, window)
             per_slot = (hd + 2) * 2 if quant else hd * 2 * 2
@@ -757,20 +878,30 @@ def phase_rolling_kernels(dev, card):
             ops = 4 * h * hd * int(vis.sum())
             bound = (_roofline(n_bytes, 0, ops) if quant
                      else _roofline(n_bytes, ops))
-            lib_ms = None
-            if not quant:
+            lib_ms = call_ms = None
+            if quant:
+                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            else:                   # row 2r: device times (a split body)
                 kg = gather_paged_cache(case["k"], case["tables"]).transpose(1, 2)
                 vg = gather_paged_cache(case["v"], case["tables"]).transpose(1, 2)
                 idx = torch.arange(kg.shape[2], device=dev)
                 mask = (idx[None] < torch.tensor(vis, device=dev)[:, None])
                 q4 = case["q"][:, :, None]               # [B, H, 1, hd]
                 m4 = mask[:, None, None]
-                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, kg, vg, attn_mask=m4, enable_gqa=True), reps=20)
+                ms, call_ms, lib_ms = _tiled_times(
+                    kernel, lambda: kernel(*args, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        q4, kg, vg, attn_mask=m4, enable_gqa=True))
                 del kg, vg
             entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
-                           lib_ms, card)
+                           lib_ms, card, call_ms)
         results.append((kernel, entry))
+    _quant_decode_draws(
+        "paged_decode_attention_quant_rolling",
+        kda.paged_decode_attention_quant_rolling,
+        kda.paged_decode_attention_quant_plain,
+        lambda g: _quant(_rolling_case(g, dec, 4096, h, kv, hd, bs, dev)),
+        4096)
 
     # windowed flash: B = 2, S = 4500 at W = 4096 (the main shape), then
     # S = 397 at W = 64; the plain version is local_attention (fp32 here)
@@ -939,22 +1070,40 @@ def phase_contiguous_kernels(dev, card):
             label = f"R={ROWS} S={s_rows} H={h} Kv={kv} hd={hd}"
             if q8 and not decode:
                 label += f" p-tile={kv_tile(512, s_rows)}"
-            err = _held(name, kernel, plain, args, label)
+            if q8 and decode:
+                err = _held_quant_decode(name, kernel, plain, args, label)
+            else:
+                err = _held(name, kernel, plain, args, label)
             if entry is not None:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args))
             plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
-            lib_ms = None
-            if not q8:
+            lib_ms = call_ms = None
+            if q8:
+                ms = _kernel_ms(kernel, lambda: kernel(*args))
+            else:
                 q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode,
                                             views=_row_views(case))
-                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=m4, enable_gqa=True), reps=20)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=m4, enable_gqa=True)
+                if decode:          # row 2c: device times (a split body)
+                    ms, call_ms, lib_ms = _tiled_times(
+                        kernel, lambda: kernel(*args), sdpa)
+                else:
+                    ms = _kernel_ms(kernel, lambda: kernel(*args))
+                    lib_ms = _time_ms(sdpa, reps=20)
                 del q4, k4, v4, m4
             entry = _entry(name, src, replaces, err, ms, plain_ms,
-                           _bound(case, h, hd, quant=q8), lib_ms, card)
+                           _bound(case, h, hd, quant=q8), lib_ms, card,
+                           call_ms)
         results.append((kernel, entry))
+    _quant_decode_draws(
+        "contiguous_decode_attention_quant",
+        kda.contiguous_decode_attention_quant,
+        kda.contiguous_decode_attention_quant_plain,
+        lambda g: _row_quant(_row_case(g, g.integers(100, s_rows + 1, 8) - 1,
+                                       np.arange(8), g.permutation(8), s_rows,
+                                       h, h, hd, dev)))
 
     # mixtral: the rolling phase's spans and decode contexts over rows of
     # W slots, 8 rows out of order
@@ -1033,12 +1182,15 @@ def phase_contiguous_kernels(dev, card):
             args = [case["q"], *cache, case["rows"], case["positions"]]
             kw = {"window": window}
             pl = lambda *a, **_: plain(*a, rolling_window=window)
-            err = _held(name, kernel, pl, args,
-                        f"W={window} B=8 contexts 100-9000", **kw)
+            label = f"W={window} B=8 contexts 100-9000"
+            if q8:
+                err = _held_quant_decode(name, kernel, plain, args, label,
+                                         window)
+            else:
+                err = _held(name, kernel, pl, args, label, **kw)
             if entry is not None:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 continue
-            ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             plain_ms = _time_ms(lambda: pl(*args), reps=3, warmup=1)
             vis = np.minimum(case["np"]["pos"] + 1, window)
             per_slot = (hd + 2) * 2 if q8 else hd * 2 * 2
@@ -1047,20 +1199,101 @@ def phase_contiguous_kernels(dev, card):
             ops = 4 * h * hd * int(vis.sum())
             bound = (_roofline(n_bytes, 0, ops) if q8
                      else _roofline(n_bytes, ops))
-            lib_ms = None
-            if not q8:
+            lib_ms = call_ms = None
+            if q8:
+                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            else:                  # row 2cr: device times (a split body)
                 kg, vg = (x.transpose(1, 2) for x in _row_views(case))
                 idx = torch.arange(window, device=dev)
                 m4 = (idx[None] < torch.tensor(vis, device=dev)[:, None])
                 q4 = case["q"][:, :, None]               # [B, H, 1, hd]
-                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, kg, vg, attn_mask=m4[:, None, None],
-                    enable_gqa=True), reps=20)
+                ms, call_ms, lib_ms = _tiled_times(
+                    kernel, lambda: kernel(*args, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        q4, kg, vg, attn_mask=m4[:, None, None],
+                        enable_gqa=True))
                 del kg, vg
             entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
-                           lib_ms, card)
+                           lib_ms, card, call_ms)
         results.append((kernel, entry))
+    _quant_decode_draws(
+        "contiguous_decode_attention_quant_rolling",
+        kda.contiguous_decode_attention_quant_rolling,
+        kda.contiguous_decode_attention_quant_plain,
+        lambda g: _row_quant(_row_rolling_case(g, dec, 4096, row_perm, h, kv,
+                                               hd, dev)),
+        4096)
+    _split_decode_cases(dev)
     return results
+
+
+def _split_decode_cases(dev):
+    """Rows 2, 2c, 2r and 2cr (the split decode body,
+    ``csrc/decode_attention_split.cuh``) on extra held cases drawn from a
+    generator of their own: glm4-9b's widths (H 32, Kv 2, hd 128: g 16, the
+    whole query tile) over contexts up to 640; contexts of 1 slot, of one
+    split (DECODE_SPLIT = 256 slots), one more, two splits and one more, at
+    stablelm's widths (full cache) and at mixtral's (rolling, W 4096, rows
+    of exactly W slots and wrapped rows).  Each case is one logical cache,
+    paged and as rows (table width nb * bs = row width S): over rows the
+    kernel must give the paged kernel's bits (one fold order).  These
+    launches do not count."""
+    import torch
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels._paged import DECODE_SPLIT as L
+    from repro_torch.models.attention import gather_paged_cache
+    gen = np.random.default_rng(SEED + 11)
+    wrappers = (kda.paged_decode_attention, kda.contiguous_decode_attention,
+                kda.paged_decode_attention_rolling,
+                kda.contiguous_decode_attention_rolling)
+    launches = [w.launches for w in wrappers]
+    edges = [0, L - 1, L, 2 * L - 1, 2 * L]
+    cases = [
+        ("glm4-9b widths", 32, 2, 128, 0,
+         [0, L - 1, L, 639, *(gen.integers(100, 640, 4) - 1)]),
+        ("stablelm widths, split edges", 32, 32, 64, 0, edges + [63, 64, 639]),
+        ("mixtral widths, split edges", 32, 8, 128, 4096,
+         edges + [4095, 4096, 8999]),
+    ]
+    for label, h, kv, hd, window, pos in cases:
+        pos = np.asarray(pos, np.int64)
+        b = len(pos)
+        if window:
+            case = _rolling_case(gen, [(int(p), 1) for p in pos], window, h,
+                                 kv, hd, 16, dev)
+            paged, rows = wrappers[2:]
+        else:
+            case = _paged_case(gen, pos, np.arange(b), b, h, kv, hd, 16, dev)
+            paged, rows = wrappers[:2]
+        views = [gather_paged_cache(case[n], case["tables"]).contiguous()
+                 for n in "kv"]
+        idx = torch.arange(b, dtype=torch.int32, device=dev)
+        paged_args = [case["q"], case["k"], case["v"], case["tables"],
+                      case["positions"]]
+        row_args = [case["q"], *views, idx, case["positions"]]
+        kw = {"window": window} if window else {}
+        width = case["tables"].shape[1] * 16
+        text = (f"{label}: H={h} Kv={kv} hd={hd} B={b} contexts "
+                f"{sorted(np.minimum(pos + 1, window or width).tolist())}"
+                + (f" W={window}" if window else ""))
+        _held(paged.__name__, paged,
+              lambda *a, **_: kda.paged_decode_attention_plain(
+                  *a, rolling_window=window), paged_args, text, **kw)
+        _held(rows.__name__, rows,
+              lambda *a, **_: kda.contiguous_decode_attention_plain(
+                  *a, rolling_window=window), row_args, text, **kw)
+        over_pages = paged(*paged_args, **kw)
+        over_rows = rows(*row_args, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(over_pages, over_rows)
+        print(f"kernel {rows.__name__} over rows == {paged.__name__} over "
+              f"pages ({label}, S = nb * bs = {views[0].shape[1]}): {equal}",
+              flush=True)
+        if not equal:
+            raise AssertionError(f"{rows.__name__} and {paged.__name__} "
+                                 f"differ on one logical cache")
+    for w, n in zip(wrappers, launches):
+        w.launches = n
 
 
 def _rows_equal_pages(gen, h, kv, hd, spans, dev):

@@ -1,8 +1,10 @@
-// Shared body of the port's bf16 attention kernels, paged and contiguous
-// (paged_span_attention.cu, span_attention.cu, decode_attention.cu; the
-// int8 kernels' fresh span, through paged_attention_quant.cuh).  The bf16
-// rolling span kernels have their own tiled body
-// (span_attention_tiled.cuh); Rolling<...> below has no user left.
+// Shared body of the port's bf16 full-cache span kernels, paged and
+// contiguous (paged_span_attention.cu, span_attention.cu: PERF.md rows 1
+// and 9), and of the int8 kernels' fresh span (through
+// paged_attention_quant.cuh).  The bf16 rolling span kernels have their own
+// tiled body (span_attention_tiled.cuh), the bf16 decode kernels their
+// split body (decode_attention_split.cuh); Rolling<...> below has no user
+// left.
 //
 // One thread block computes the attention of ONE query token for the g
 // query heads that share ONE kv head.  It folds one or more sources of
@@ -14,8 +16,7 @@
 // query heads (invalid slots score -1e30), and folded in.  Sources:
 //
 //   PagedSlots    slots 0..n-1 of the token's block-table row, all valid
-//                 (full cache: n = pos + 1; rolling decode: n =
-//                 min(pos + 1, W));
+//                 (full cache: n = pos + 1);
 //   RowSlots      the same slots of one row of a contiguous [R, S, Kv, hd]
 //                 cache (the contiguous KV layout): slot s of row r sits
 //                 at ((r * S + s) * Kv + kh) * hd;

@@ -66,7 +66,8 @@
 // identical bits whenever the table's width nb * bs equals the row width
 // S.  No atomics, no split-K: two launches repeat bit for bit.
 // Instantiated for hd in {16, 32, 64, 128}; g in {1, 2, 4, 8} is a
-// runtime shift.
+// runtime shift.  The copy and tensor-core primitives are in
+// tiled_primitives.cuh, shared with the split decode body.
 #pragma once
 
 #include <cassert>
@@ -74,19 +75,14 @@
 #include <cmath>
 #include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tiled_primitives.cuh"
 
 namespace tiled {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;  // 4 warps, 16 query rows each
 constexpr int kRows = 64;      // query rows of a block
 constexpr int kSlots = 64;     // K/V slots (or fresh entries) of a tile
-constexpr float kNone = -1e30f;  // running max before any visible score
 constexpr int kFull = 1 << 30;   // a tile's flag: every query row sees it all
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // The plan: int32 workspace, laid out as
@@ -186,26 +182,6 @@ plan_kernel(const int* __restrict__ seq_idx, int T, int rows, int tq,
 // Slot addresses of one cache row, for one kv head
 // ---------------------------------------------------------------------------
 
-// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1; the
-// round-up method of CUTLASS's FastDivmod): the slot-to-page division of
-// every staged slot without an integer division.
-struct FastDiv {
-  int d;
-  unsigned mul;
-  int shr;
-  __host__ explicit FastDiv(int d_) : d(d_), mul(0), shr(0) {
-    if (d == 1) return;
-    int lg = 0;
-    while ((1LL << lg) < d) ++lg;  // ceil(log2 d)
-    const int p = 31 + lg;
-    mul = (unsigned)(((1ULL << p) + (unsigned)d - 1) / (unsigned)d);
-    shr = p - 32;
-  }
-  __device__ __forceinline__ int div(int n) const {
-    return d == 1 ? n : (int)(__umulhi((unsigned)n, mul) >> shr);
-  }
-};
-
 // Slots of one block-table row of a [n_blocks, bs, Kv, hd] cache; the
 // row's table entries are copied to shared memory (stab) by prepare().
 struct PagedRow {
@@ -242,67 +218,6 @@ struct ContiguousRow {
     return (((size_t)row * S + s) * Kv + kh) * HD;
   }
 };
-
-// ---------------------------------------------------------------------------
-// Tensor-core and copy primitives
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) as bf16 hi + lo pairs: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // Does the arc of `len` slots from slot a (mod w) meet slots [s0, s1)?
 __device__ __forceinline__ bool arc_hits(int a, int len, int w, int s0,
@@ -696,14 +611,6 @@ inline int log2_group(int H, int Kv) {
     case 8: return 3;
     default: return -1;
   }
-}
-
-// Above 48 KB of dynamic shared memory a kernel must opt in.
-template <typename Kernel>
-inline cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace tiled

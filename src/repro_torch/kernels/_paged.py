@@ -1,7 +1,9 @@
-"""Input checks and launch geometry shared by the attention kernels
-(``span_attention``, ``decode_attention``), paged and contiguous; see
-``csrc/paged_attention.cuh`` and ``csrc/paged_attention_quant.cuh`` for
-the kernels' common bodies.
+"""Input checks, launch geometry and the limit against their plain
+versions shared by the attention kernels (``span_attention``,
+``decode_attention``), paged and contiguous; see
+``csrc/paged_attention.cuh``, ``csrc/paged_attention_quant.cuh``,
+``csrc/span_attention_tiled.cuh`` and ``csrc/decode_attention_split.cuh``
+for the kernels' bodies.
 
 Two cache layouts: paged, [n_blocks, bs, Kv, hd] leaves read through
 [B, nb] int32 block tables; and contiguous rows, [R, S, Kv, hd] leaves
@@ -12,6 +14,8 @@ from __future__ import annotations
 import threading
 
 import torch
+
+from repro_torch.models.attention import decode_quant_pv
 
 TILE = 64                   # KV slots staged in shared memory per step
 
@@ -25,6 +29,75 @@ TILE = 64                   # KV slots staged in shared memory per step
 # needs its probabilities as bf16 hi + lo to stay inside it.
 KERNEL_REL = 2.0 ** -7
 KERNEL_ABS = 1e-5
+
+# The int8 decode kernels (csrc/decode_attention_quant.cu: rows 2b, 2bc,
+# 2br and 2bcr) normalise the softmax over the whole context, then quantize
+# x = p * vs / scale to p8 = round(x) (scale = max |p * vs| / 127 + 1e-8 per
+# (row, head)).  The kernel sums the denominator S = sum of e_s =
+# exp(score_s - max) in another order than the plain version (lane-strided
+# partial sums, then a butterfly), so an x that lies on a rounding
+# half-integer can give a p8 one step apart, and an output element then
+# moves by ps * |v8[s, d]|, more than the limit above where |plain| is
+# small.  QUANT_FLIP_TERM's bound on that:
+# - both sums are of the same fp32 e_s (same scores, same expf), each
+#   within gamma(n - 1) * S of the exact sum in any order (n visible slots,
+#   gamma(k) = k u / (1 - k u), u = 2^-24: the fp32 unit roundoff), so the
+#   two differ by a relative eps <= 2 gamma(n - 1);
+# - a relative change eps of S moves every p * vs by -eps, the scale's
+#   max |p * vs| / 127 part with them, but not its 1e-8: x moves by
+#   |x| * eps * 1e-8 / scale;
+# - each version rounds 7 times on the way to x (e / S, * vs, / scale; in
+#   the scale e / S, * vs, / 127, + 1e-8): 14 u of |x| more between them.
+# So slot s's two p8 agree unless the plain version's x lies within
+# delta_s = |x_s| * (2 gamma(n - 1) * 1e-8 / scale + 14 u) of a half-integer,
+# and the term adds, for each output element, ps * sum |v8[s, d]| over those
+# slots: one p8 step at each.  A ps one bf16 step apart (the scale itself on
+# a rounding boundary) moves the output by 2^-8 relative, inside
+# KERNEL_REL.  The span kernels quantize per tile under a running max: the
+# term is not theirs.
+FP32_UNIT = 2.0 ** -24
+QUANT_X_ROUNDINGS = 7
+
+
+def quant_decode_x(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                   vs: torch.Tensor, positions: torch.Tensor, *,
+                   rolling_window: int = 0):
+    """The int8 decode plain version's x = p * vs / scale [B, Kv, g, S], the
+    half-integer distance each slot's p8 is safe within (delta, the same
+    shape; 0 where no slot is visible) and the bf16 scale ps [B, Kv, g].
+    Caches in rows: k8 [B, S, Kv, hd], ks/vs [B, S, Kv] (a paged cache's
+    gathered view)."""
+    pv, valid = decode_quant_pv(q.float(), k8, ks, vs, positions,
+                                rolling_window=rolling_window)
+    amax = pv.abs().amax(-1)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-8   # as quantize_kv
+    x = pv / scale[..., None]
+    k = (valid.sum(-1).double() - 1).clamp(min=0)[:, None, None, None]
+    gamma = k * FP32_UNIT / (1 - k * FP32_UNIT)
+    delta = x.double().abs() * (2 * gamma * 1e-8 / scale[..., None].double()
+                                + 2 * QUANT_X_ROUNDINGS * FP32_UNIT)
+    delta = torch.where(valid[:, None, None, :], delta,
+                        torch.zeros_like(delta))
+    return x, delta, scale.bfloat16().float()
+
+
+def quant_flip_term(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                    v8: torch.Tensor, vs: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    rolling_window: int = 0) -> torch.Tensor:
+    """The int8 decode limit's extra term [B, H * hd] (see the comment
+    above): ps * sum of |v8[s, d]| over each (row, head)'s slots s whose x
+    lies within delta_s of a half-integer.  Arguments as
+    :func:`quant_decode_x`, v8 [B, S, Kv, hd]."""
+    b, h, hd = q.shape
+    x, delta, ps = quant_decode_x(q, k8, ks, vs, positions,
+                                  rolling_window=rolling_window)
+    ax = x.double().abs()
+    near = ((ax - torch.floor(ax) - 0.5).abs() <= delta).float()
+    # integers below 2^24: exact in fp32
+    steps = torch.einsum("bgqs,bsgd->bgqd", near, v8.float().abs())
+    return (steps * ps[..., None]).reshape(b, h * hd)
+
 
 # The tiled rolling span body (csrc/span_attention_tiled.cuh): blocks of
 # QUERY_ROWS query rows, 64 / g tokens x g heads of one kv head
@@ -45,6 +118,35 @@ def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the tiled rolling kernel needs 16-byte aligned "
                          "inputs")
+
+
+# The split decode body of the bf16 decode kernels
+# (csrc/decode_attention_split.cuh): chunks of DECODE_SPLIT slots from slot
+# 0 (the C entry refuses another value), g = H / Kv up to 16 (the rows of
+# one mma tile), hd in TILED_WIDTHS
+DECODE_SPLIT = 512
+DECODE_MAX_GROUP = 16
+
+
+def check_decode_split(q: torch.Tensor, kv_heads: int, tensors) -> None:
+    """The split decode body's shapes, for a CUDA call: 1 <= g <=
+    DECODE_MAX_GROUP, hd in TILED_WIDTHS, 16-byte aligned data (cp.async).
+    Raises ValueError; the caller never falls back to the plain version."""
+    h, hd = q.shape[1], q.shape[2]
+    if not 1 <= h // kv_heads <= DECODE_MAX_GROUP or hd not in TILED_WIDTHS:
+        raise ValueError(f"the split decode kernel takes g = H / Kv in "
+                         f"1..{DECODE_MAX_GROUP} and hd in {TILED_WIDTHS}, "
+                         f"got g = {h // kv_heads}, hd = {hd}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the split decode kernel needs 16-byte aligned "
+                         "inputs")
+
+
+def decode_workspace(b: int, h: int, kv: int, hd: int, width: int) -> int:
+    """fp32 entries of the split decode body's partial states for B = b
+    rows over ``width`` slots: (max, sum, o[hd]) for each (row, query head,
+    chunk)."""
+    return b * h * -(-width // DECODE_SPLIT) * (hd + 2)
 
 
 def plan_ints(t: int, rows: int, g: int) -> int:

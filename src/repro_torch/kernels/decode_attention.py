@@ -6,7 +6,12 @@ CUDA kernels:
 - ``csrc/decode_attention.cu`` replaces the TPU kernel
   ``repro/kernels/decode_attention.py:72`` (``decode_attention``).  The
   TPU kernel read contiguous rows; this one reads K/V through the [B, nb]
-  block table.  Its design is described in ``csrc/paged_attention.cuh``.
+  block table.  Its body, ``csrc/decode_attention_split.cuh``, splits a
+  row's visible slots into chunks of ``_paged.DECODE_SPLIT`` from slot 0,
+  folds each on the tensor cores in its own block and merges the chunks in
+  order (a second kernel of the same C call, through a workspace the
+  wrapper allocates); it takes g = H / Kv up to 16 and hd in {16, 32, 64,
+  128}, and raises ``ValueError`` on other CUDA shapes.
 - ``csrc/decode_attention_quant.cu`` has no TPU kernel before it: the
   reference runs the jnp ``decode_attention_quant`` on the gathered view
   (repro/models/transformer.py:110-133).  It reads the int8 cache through
@@ -62,7 +67,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel():
     return _build.load("decode_attention", "paged_decode_attention",
-                       [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P])
+                       [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P])
 
 
 @functools.cache
@@ -98,11 +103,16 @@ def _decode(wrapper, q, k_cache, v_cache, block_tables, positions, window):
     b, h, hd = q.shape
     n_blocks, bs, kv = k_cache.shape[:3]
     nb = block_tables.shape[1]
+    _paged.check_decode_split(q, kv, (q, k_cache, v_cache))
+    width = min(nb * bs, window) if window else nb * bs
+    ws = torch.empty(_paged.decode_workspace(b, h, kv, hd, width),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    block_tables.data_ptr(), positions.data_ptr(),
-                   out.data_ptr(), b, h, kv, hd, bs, nb, n_blocks,
-                   _paged.TILE, window, hd ** -0.5, _paged.stream_ptr(q))
+                   ws.data_ptr(), out.data_ptr(), b, h, kv, hd, bs, nb,
+                   n_blocks, _paged.DECODE_SPLIT, window, hd ** -0.5,
+                   _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{rc}")
@@ -147,7 +157,7 @@ def paged_decode_attention_quant_plain(q, k8, ks, v8, vs, block_tables,
 
 
 def _decode_quant(wrapper, q, k8, ks, v8, vs, block_tables, positions,
-                  window):
+                  window, scratch=None):
     _paged.check_quant(q, k8, ks, v8, vs, block_tables,
                        {"positions": positions})
     if block_tables.shape[0] != q.shape[0]:
@@ -162,8 +172,10 @@ def _decode_quant(wrapper, q, k8, ks, v8, vs, block_tables, positions,
     nb = block_tables.shape[1]
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
     # the scores, then the quantized probabilities, of each (row, head)
-    scratch = torch.empty((b, h, nb * bs), dtype=torch.float32,
-                          device=q.device)
+    # (chip_smoke.py passes its own to read the probabilities back)
+    if scratch is None:
+        scratch = torch.empty((b, h, nb * bs), dtype=torch.float32,
+                              device=q.device)
     rc = _quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
                          v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
                          positions.data_ptr(), scratch.data_ptr(),
@@ -213,7 +225,7 @@ paged_decode_attention_quant_rolling.launches = 0
 @functools.cache
 def _rows_kernel():
     return _build.load("decode_attention", "contiguous_decode_attention",
-                       [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P])
+                       [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P])
 
 
 @functools.cache
@@ -240,10 +252,15 @@ def _rows_decode(wrapper, q, k_cache, v_cache, rows, positions, window):
             q, k_cache, v_cache, rows, positions, rolling_window=window)
     b, h, hd = q.shape
     r, s, kv = k_cache.shape[:3]
+    _paged.check_decode_split(q, kv, (q, k_cache, v_cache))
+    width = min(s, window) if window else s
+    ws = torch.empty(_paged.decode_workspace(b, h, kv, hd, width),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
     rc = _rows_kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                        rows.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                        b, h, kv, hd, r, s, _paged.TILE, window, hd ** -0.5,
+                        rows.data_ptr(), positions.data_ptr(), ws.data_ptr(),
+                        out.data_ptr(), b, h, kv, hd, r, s,
+                        _paged.DECODE_SPLIT, window, hd ** -0.5,
                         _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
@@ -290,7 +307,8 @@ def contiguous_decode_attention_quant_plain(q, k8, ks, v8, vs, rows,
                                   rolling_window=rolling_window)
 
 
-def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window):
+def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window,
+                       scratch=None):
     _paged.check_quant(q, k8, ks, v8, vs, None,
                        {"rows": rows, "positions": positions})
     if q.device.type == "cpu":
@@ -300,7 +318,8 @@ def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window):
     r, s, kv = k8.shape[:3]
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
     # the scores, then the quantized probabilities, of each (row, head)
-    scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if scratch is None:
+        scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     rc = _rows_quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
                               v8.data_ptr(), vs.data_ptr(), rows.data_ptr(),
                               positions.data_ptr(), scratch.data_ptr(),

@@ -262,16 +262,13 @@ def _int_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.double(), b.double()).float()
 
 
-def decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
-                           ks: torch.Tensor, v8: torch.Tensor,
-                           vs: torch.Tensor, positions: torch.Tensor, *,
-                           rolling_window: int = 0) -> torch.Tensor:
-    """Single-token attention over an int8 cache.  q [B, Hq, hd]; k8/v8
-    [B, S, Kv, hd] int8; ks/vs [B, S, Kv] bf16; visible slots as in
-    :func:`decode_attention`.  q is quantized per head; the softmax is
-    normalized over the whole context, then the probabilities times the V
-    scales are quantized with one scale per (row, head) before the AV
-    dot."""
+def decode_quant_pv(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                    vs: torch.Tensor, positions: torch.Tensor, *,
+                    rolling_window: int = 0):
+    """The probabilities times the V scales of :func:`decode_attention_quant`
+    before their quantization, pv [B, Kv, G, S] fp32, and the visible slots
+    [B, S].  q is quantized per head; the softmax is normalized over the
+    whole context."""
     b, hq, hd = q.shape
     s, n_kv = k8.shape[1], k8.shape[2]
     g = hq // n_kv
@@ -284,7 +281,22 @@ def decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
                          torch.full_like(scores, NEG_INF))
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = e / e.sum(-1, keepdim=True)                   # jax.nn.softmax
-    pv = p * vs.permute(0, 2, 1)[:, :, None, :].float()
+    return p * vs.permute(0, 2, 1)[:, :, None, :].float(), valid
+
+
+def decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                           ks: torch.Tensor, v8: torch.Tensor,
+                           vs: torch.Tensor, positions: torch.Tensor, *,
+                           rolling_window: int = 0) -> torch.Tensor:
+    """Single-token attention over an int8 cache.  q [B, Hq, hd]; k8/v8
+    [B, S, Kv, hd] int8; ks/vs [B, S, Kv] bf16; visible slots as in
+    :func:`decode_attention`.  q is quantized per head; the softmax is
+    normalized over the whole context, then the probabilities times the V
+    scales are quantized with one scale per (row, head) before the AV
+    dot."""
+    b, hq, hd = q.shape
+    pv, _ = decode_quant_pv(q, k8, ks, vs, positions,
+                            rolling_window=rolling_window)
     p8, ps = quantize_kv(pv)
     out = _int_dot("bgqs,bsgd->bgqd", p8, v8) * ps[..., None].float()
     return out.to(q.dtype).reshape(b, hq * hd)
