@@ -21,10 +21,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    same function (``scaled_dot_product_attention``; a yardstick the port
    never calls) beside the kernel's bound.  The int8 span kernel runs at
    both p-quantization tiles: one page (the Pallas kernel's) and the
-   engine's (the reference engine's kv_block = 512).  The bf16 decode
-   kernels (rows 2, 2c, 2r, 2cr, here and in 3 and 6) are timed on the
-   device alone (``_device_ms``, beside SDPA's device time and the
-   back-to-back ``call_ms``).  The int8 decode kernels (here and in 3 and
+   engine's (the reference engine's kv_block = 512).  The tensor-core
+   kernels (the bf16 decode kernels, rows 2, 2c, 2r, 2cr; the bf16 span
+   kernels, rows 1, 9, 6, 11; the flash kernel, rows 3, 3w, 3n; here and
+   in 3, 6 and 8) are timed on the device alone (``_device_ms``, beside
+   SDPA's device time and the back-to-back ``call_ms``).  The flash
+   kernel's extra held cases (``SEED + 12``): causal at S = 64 and 65 (one
+   tile, one tile and a row), and glm4-9b's widths (H 32, Kv 2, hd 128: g
+   16) at S 397.  The int8 decode kernels (here and in 3 and
    6) are held to the limit plus ``kernels/_paged.py``'s flip term (one
    quantized-probability step at each slot on a rounding boundary), on
    their cases and on QUANT_DRAWS extra draws of their own; where the
@@ -61,9 +65,11 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    and timed as in 2 and 3 (rows 9-12 of PERF.md's kernel table and the
    contiguous modes of both decode kernels, at stablelm's shapes over
    rows of S = 640 and at mixtral's over rolling rows of W = 4096 and
-   64), and the split decode body's extra cases (glm4-9b's widths, g 16;
-   contexts of 1 slot and on either side of one and two 512-slot splits),
-   each over pages and over rows of one logical cache, where the two
+   64), the split decode body's extra cases (glm4-9b's widths, g 16;
+   contexts of 1 slot and on either side of one and two 512-slot splits)
+   and the full-cache span body's (rows 1 and 9, ``SEED + 13``: the chunk
+   with its rows interleaved round robin in seq_idx; glm4-9b's widths, g
+   16), each over pages and over rows of one logical cache, where the two
    kernels must give the same bits; then, right after the engine phase
    and with its weights and prompts, stablelm-1.6b over contiguous rows
    on its four paths, and, right after the mixtral phase, mixtral-8x7b
@@ -445,6 +451,30 @@ def _row_quant(case):
     return [case["q"], k8, ks, v8, vs, case["rows"], case["positions"]]
 
 
+def _flash_cases(dev):
+    """The flash kernel's (rows 3, 3w, 3n) extra held cases, drawn from a
+    generator of their own: causal at stablelm's widths (H = Kv = 32, hd
+    64, B 2) over S = 64 (one whole tile) and S = 65 (a whole tile, then
+    one more row and key), and at glm4-9b's widths (H 32, Kv 2, hd 128:
+    g 16, 4 positions x 16 heads a block) over S = 397, B 2.  Returns the
+    largest |error|; these launches do not count."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    gen = np.random.default_rng(SEED + 12)
+    err = 0.0
+    for b, s, h, kv, hd, label in ((2, 64, 32, 32, 64, "one tile"),
+                                   (2, 65, 32, 32, 64, "a tile and a row"),
+                                   (2, 397, 32, 2, 128, "glm4-9b widths")):
+        q, k, v = (torch.tensor(gen.standard_normal((b, s, n, hd), np.float32),
+                                device=dev).to(torch.bfloat16)
+                   for n in (h, kv, kv))
+        qpos = torch.arange(s, dtype=torch.int32, device=dev)
+        err = max(err, _held("flash_attention", kfa.flash_attention,
+                             kfa.flash_attention_plain, [q, k, v, qpos],
+                             f"{label}: B={b} S={s} H={h} Kv={kv} hd={hd}"))
+    return err
+
+
 def phase_kernels(dev, gen, card):
     import torch
     import torch.nn.functional as F
@@ -491,13 +521,9 @@ def phase_kernels(dev, gen, card):
             q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode)
             sdpa = lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4, enable_gqa=True)
-            call_ms = None
-            if decode:              # row 2: device times (a split body)
-                ms, call_ms, lib_ms = _tiled_times(
-                    kernel, lambda: kernel(*args), sdpa)
-            else:
-                ms = _kernel_ms(kernel, lambda: kernel(*args))
-                lib_ms = _time_ms(sdpa, reps=20)
+            # rows 1 and 2: device times (tensor-core bodies)
+            ms, call_ms, lib_ms = _tiled_times(kernel, lambda: kernel(*args),
+                                               sdpa)
             entry = _entry(name, src, replaces, err, ms, plain_ms,
                            _bound(case, h, hd), lib_ms, card, call_ms)
         results.append((kernel, entry))
@@ -524,16 +550,18 @@ def phase_kernels(dev, gen, card):
         if kv != h:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             continue
-        ms = _kernel_ms(kfa.flash_attention, lambda: kfa.flash_attention(*args))
         plain_ms = _time_ms(lambda: kfa.flash_attention_plain(*args), reps=3,
                             warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=20)
+        ms, call_ms, lib_ms = _tiled_times(
+            kfa.flash_attention, lambda: kfa.flash_attention(*args),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         entry = _entry("flash_attention", flash_src,
                        "src/repro/kernels/flash_attention.py:80", err, ms,
                        plain_ms, _flash_bound(b, s, s, h, kv, hd,
-                                              s * (s + 1) // 2), lib_ms, card)
+                                              s * (s + 1) // 2), lib_ms, card,
+                       call_ms)
+    entry["max_abs_err"] = max(entry["max_abs_err"], _flash_cases(dev))
     results.append((kfa.flash_attention, entry))
 
     # the int8 kernels: no single PyTorch call computes them (library_ms
@@ -690,7 +718,7 @@ def _tiled_cases(spans, spans64):
 
 def _tiled_times(kernel, fn, sdpa_fn):
     """(device ms, ms back to back through the wrapper, SDPA device ms) of
-    a tiled rolling kernel: at ~0.1 ms a call's host work (0.02-0.05 ms)
+    a tensor-core kernel: at ~0.1 ms a call's host work (0.02-0.05 ms)
     would be part of a back-to-back figure."""
     return (_device_ms(kernel, fn), _kernel_ms(kernel, fn),
             _device_ms(None, sdpa_fn))
@@ -919,15 +947,15 @@ def phase_rolling_kernels(dev, card):
         if entry is not None:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             continue
-        ms = _kernel_ms(kfa.flash_attention,
-                        lambda: kfa.flash_attention(*args, **kw))
         plain_ms = _time_ms(lambda: kfa.flash_attention_plain(*args, **kw),
                             reps=3, warmup=1)
         i = torch.arange(s, device=dev)
         band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=band, enable_gqa=True), reps=20)
+        ms, call_ms, lib_ms = _tiled_times(
+            kfa.flash_attention, lambda: kfa.flash_attention(*args, **kw),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True))
         pairs = int(np.minimum(np.arange(s) + 1, window).sum())
         n_bytes = 2 * b * s * (2 * h + 2 * kv) * hd + 4 * s
         entry = _entry("flash_attention_windowed",
@@ -935,7 +963,7 @@ def phase_rolling_kernels(dev, card):
                        "src/repro/kernels/flash_attention.py:80 (window band)",
                        err, ms, plain_ms,
                        _roofline(n_bytes, 4 * hd * h * b * pairs), lib_ms,
-                       card)
+                       card, call_ms)
     results.append((kfa.flash_attention, entry))
     return results
 
@@ -1086,12 +1114,9 @@ def phase_contiguous_kernels(dev, card):
                                             views=_row_views(case))
                 sdpa = lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=m4, enable_gqa=True)
-                if decode:          # row 2c: device times (a split body)
-                    ms, call_ms, lib_ms = _tiled_times(
-                        kernel, lambda: kernel(*args), sdpa)
-                else:
-                    ms = _kernel_ms(kernel, lambda: kernel(*args))
-                    lib_ms = _time_ms(sdpa, reps=20)
+                # rows 9 and 2c: device times (tensor-core bodies)
+                ms, call_ms, lib_ms = _tiled_times(
+                    kernel, lambda: kernel(*args), sdpa)
                 del q4, k4, v4, m4
             entry = _entry(name, src, replaces, err, ms, plain_ms,
                            _bound(case, h, hd, quant=q8), lib_ms, card,
@@ -1159,6 +1184,7 @@ def phase_contiguous_kernels(dev, card):
                            lib_ms, card, call_ms)
         results.append((kernel, entry))
     _rows_equal_pages(tgen, h, kv, hd, spans, dev)
+    _full_span_cases(dev)
 
     for name, kernel, plain, q8, src, replaces in (
             ("contiguous_decode_attention_rolling",
@@ -1293,6 +1319,57 @@ def _split_decode_cases(dev):
             raise AssertionError(f"{rows.__name__} and {paged.__name__} "
                                  f"differ on one logical cache")
     for w, n in zip(wrappers, launches):
+        w.launches = n
+
+
+def _full_span_cases(dev):
+    """Rows 1 and 9 (the full-cache mode of ``csrc/span_attention_tiled.
+    cuh``) on extra held cases drawn from a generator of their own:
+    stablelm's chunk (H = Kv = 32, hd 64; 256 tokens over 4 rows) with its
+    rows interleaved round robin in seq_idx, and glm4-9b's widths (H 32,
+    Kv 2, hd 128: g 16, 4 tokens x 16 heads a query tile) over runs of 37,
+    64 and 29 tokens.  Each case is one logical cache, paged and as rows
+    (table width nb * bs = row width S): each kernel is held against its
+    plain version, and over rows the kernel must give the paged kernel's
+    bits (one fold order).  These launches do not count."""
+    import torch
+    from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import gather_paged_cache
+    gen = np.random.default_rng(SEED + 13)
+    paged, rows = ksa.paged_span_attention, ksa.span_attention
+    launches = [w.launches for w in (paged, rows)]
+    for label, h, kv, hd, spans, interleave in (
+            ("interleaved rows", 32, 32, 64,
+             [(0, 96), (200, 64), (448, 64), (120, 32)], True),
+            ("glm4-9b widths", 32, 2, 128, [(0, 37), (300, 64), (575, 29)],
+             False)):
+        seq = np.concatenate([np.full(c, r) for r, (_, c) in enumerate(spans)])
+        pos = np.concatenate([o + np.arange(c) for o, c in spans])
+        if interleave:                  # round robin over the rows
+            rank = np.concatenate([np.arange(c) for _, c in spans])
+            idx = np.lexsort((seq, rank))
+            seq, pos = seq[idx], pos[idx]
+        case = _paged_case(gen, pos, seq, len(spans), h, kv, hd, 16, dev)
+        views = [gather_paged_cache(case[n], case["tables"]).contiguous()
+                 for n in "kv"]
+        paged_args = [case["q"], case["k"], case["v"], case["tables"],
+                      case["positions"], case["rows"]]
+        row_args = [case["q"], *views, case["positions"], case["rows"]]
+        text = (f"{label}: H={h} Kv={kv} hd={hd} T={len(pos)} runs "
+                f"{[c for _, c in spans]}")
+        _held(paged.__name__, paged, ksa.paged_span_attention_plain,
+              paged_args, text)
+        _held(rows.__name__, rows, ksa.span_attention_plain, row_args, text)
+        over_pages = paged(*paged_args)
+        over_rows = rows(*row_args)
+        torch.cuda.synchronize()
+        equal = torch.equal(over_pages, over_rows)
+        print(f"kernel span_attention over rows == paged_span_attention over "
+              f"pages ({label}, S = nb * bs = {views[0].shape[1]}): {equal}",
+              flush=True)
+        if not equal:
+            raise AssertionError("rows 9 and 1 differ on one logical cache")
+    for w, n in zip((paged, rows), launches):
         w.launches = n
 
 
@@ -1822,8 +1899,9 @@ def _whisper_kernel(dev, card):
     """The non-causal flash kernel at whisper-small's shapes (H = Kv = 12,
     hd 64): the encoder (B 4, Sq = Skv = 1500) and the cross prefill (B 4,
     Sq 4, Skv 1500), then GQA g = 4 at hd 128 over Skv = 1000 (no tile
-    multiple), each held against its plain version in fp32; timed at the
-    encoder's shape beside SDPA without a mask (a yardstick)."""
+    multiple), each held against its plain version in fp32; timed on the
+    device at the encoder's shape beside SDPA without a mask (a
+    yardstick)."""
     import functools
     import torch
     import torch.nn.functional as F
@@ -1845,17 +1923,17 @@ def _whisper_kernel(dev, card):
         if entry is not None:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             continue
-        ms = _kernel_ms(kernel, lambda: kernel(*args))
         plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                          reps=20)
+        ms, call_ms, lib_ms = _tiled_times(
+            kernel, lambda: kernel(*args),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt))
         entry = _entry("flash_attention_noncausal",
                        "src/repro_torch/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:80 "
                        "(causal=False)", err, ms, plain_ms,
                        _flash_bound(b, sq, skv, h, kv, hd, sq * skv,
-                                    causal=False), lib_ms, card)
+                                    causal=False), lib_ms, card, call_ms)
     return kernel, entry
 
 

@@ -1,256 +1,282 @@
 // Prefill attention: causal (optionally windowed) for the monolithic
 // prefill step (prefill_fn), or non-causal (every key of the batch row:
 // the whisper encoder's self-attention and the decoder's cross-attention
-// to the encoder output).
+// to the encoder output).  PERF.md rows 3 (causal), 3w (window band) and
+// 3n (non-causal).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:80
 // (flash_attention, body _kernel) together with its layout adapter
 // repro/kernels/ops.py:27 (flash_attention_bshd): it reads q [B, Sq, H, hd]
 // and k/v [B, Skv, Kv, hd] in the model's layout and writes
 // out [B, Sq, H*hd], so nothing is transposed around it.  GQA maps query
-// head h to kv head h / (H / Kv), as the Pallas BlockSpec index map did.
-//
-// Grid: one block per (64-row query tile, query head, batch row).  The
-// TPU kernel walked the kv tiles as the sequential minor grid axis with
-// the running softmax in VMEM scratch; here one block loops over its kv
-// tiles itself.  Each tile of 64 keys is staged in shared memory (bf16 ->
-// fp32; K transposed so a thread reads four keys with one 16-byte load),
-// each of 256 threads computes a 4 x 4 block of scores and keeps a
-// 4 x (hd/16) block of the output accumulator in registers; the running
-// max and sum are fp32, exactly the Pallas kernel's online softmax.
-// Causal: whole tiles outside [min_q - window + 1, max_q] of the query
-// tile's positions are skipped (the Pallas kernel's pl.when); inside a
-// visited tile, masked scores are -1e30.  Non-causal: every tile of the
-// row is visited, q_pos is not read (the reference ignores positions
-// there), and the tail tile's key count is the whole mask.  Ragged edges
-// are masked, so Sq and Skv need not be multiples of 64 or powers of two
-// (prefill batches are right-padded to the longest prompt; the encoder
-// has 1500 frames), nor equal (cross-attention: a few queries over the
-// encoder's keys); rows past Sq are computed from zeros and never stored.
+// head h to kv head h / g (g = H / Kv), as the Pallas BlockSpec index map
+// did.  The TPU kernel walked the kv tiles as the sequential minor grid
+// axis with the running softmax in VMEM scratch; here one block loops over
+// its kv tiles itself.
 //
 // What bounds it: the least work is 4 * hd flops per visible (query, key)
-// pair and head against 2 * (2H + 2Kv) * hd bytes per (row, position) of
-// q, k, v and the output; with H = Kv that is S / 4 flops per byte, so
-// memory bounds the engine's prompts (S <= 512) and the bf16 tensor
-// cores bound prompts beyond S ~ 1200 (the H100's ~295 flops per byte).
-// Non-causal, every pair is visible: the encoder (S = 1500) is bound by
-// operations, the cross-attention (Sq = 4) by reading the encoder's K/V.
-// This first version runs fp32 FMAs (no tensor cores, no TMA, no warp
-// specialisation) and reads each kv tile once per query tile, so it is
-// far from either bound.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// pair and head against 2 * (2H Sq + 2Kv Skv) * hd bytes of q, k, v and
+// the output per batch row; the H100 does ~295 bf16 tensor-core flops per
+// byte.  So:
+//   - row 3n at whisper's encoder (B 4, Sq = Skv = 1500, H = Kv = 12, hd
+//     64; every pair visible) is bound by its operations (0.028 ms), and
+//     the cross-attention (Sq 4 over 1500 keys) by reading the keys;
+//   - row 3 at the engine's prompts (S 397, H = Kv = 32, hd 64; causal) is
+//     bound by its bytes (0.0078 ms): each kv tile must be read from
+//     device memory about once, not once per query head and query tile;
+//   - row 3w at mixtral's prefill (S 4500, W 4096, H 32, Kv 8, hd 128) is
+//     bound by its operations (0.33 ms).
+// What the design does about each:
+//
+//   1. Query tiles on the tensor cores.  One block (4 warps, one per 16
+//      query rows, as FlashAttention-2) computes 64 query rows of one kv
+//      head and batch row: 64 / g positions x the g query heads that share
+//      the kv head (row m of the tile is position m / g, head m % g), so
+//      every K/V tile it stages serves all g heads and is read once per 64
+//      query rows.  S = Q K^T and O += P V are mma.sync.m16n8k16 bf16
+//      products with fp32 accumulators; Q stays in registers, loaded once
+//      with ldmatrix.  The online softmax is fp32 per row, with exp2 of
+//      scores pre-scaled by log2 e (tiled::fold_tile, shared with the span
+//      body).
+//   2. P as bf16 hi + lo = bf16(p - hi), both multiplied into one
+//      accumulator: the Pallas kernel keeps P in fp32, and one bf16 P
+//      misses the kernels' limit (2^-7 |plain| + 1e-5) at mixtral's widths
+//      (tests/test_torch_flash_tiles.py).  It costs half again as many
+//      tensor-core products (P V twice beside Q K^T once), not more bytes.
+//   3. Asynchronous staging.  K/V tiles of 64 keys are staged in bf16 (no
+//      fp32 copies) through a 2-deep ring of 16-byte cp.async copies, rows
+//      padded by 16 bytes so ldmatrix(.trans) reads without bank conflicts;
+//      keys past Skv are zero-filled without a read.  About 87 KB a block
+//      at hd 128: two blocks an SM.
+//   4. Masks only where needed.  Causal: the block visits only the kv tiles
+//      inside [min_q - W + 1, max_q] of its positions (the Pallas kernel's
+//      pl.when), and masks only the tiles that cross some row's diagonal
+//      or window edge (or the ragged end of the keys).  Non-causal: every
+//      tile of the row, q_pos not read, only the tail tile masked.  Ragged
+//      edges: Sq and Skv need not be multiples of 64 or equal (prompts
+//      right-padded to the longest, 1500 frames, a few cross queries); rows
+//      past Sq are computed from zeros and never stored.
+//   5. Determinism: kv tiles are folded from low to high, no atomics and no
+//      split-K, so two launches repeat bit for bit.
+//
+// Full-rate Hopper products (wgmma fed by TMA, warp specialisation) are
+// the step beyond this body.  Instantiated for hd in {16, 32, 64, 128};
+// g in {1, 2, 4, 8, 16} is a runtime shift.
+#include <climits>
+
+#include "tiled_primitives.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per kv tile
-constexpr int kPad = 4;        // keeps transposed rows 16-byte aligned
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
-constexpr float kNegInf = -1e30f;
+using tiled::bf16;
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+constexpr int kThreads = 128;  // 4 warps, 16 query rows each
+constexpr int kRows = 64;      // query rows of a block
+constexpr int kKeys = 64;      // keys of a kv tile
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Dynamic shared memory of one block, in 4-byte words.
 template <int HD>
-constexpr int smem_words() {
-  return 2 * HD * (kBQ + kPad)  // q and k, transposed
-         + kBK * HD             // v
-         + kBQ * (kBK + 1)      // scores / probabilities
-         + 4 * kBQ;             // max, sum, correction, positions
+struct Layout {
+  static constexpr int LD = HD + 8;              // padded row, bf16
+  static constexpr int TILE = kKeys * LD;        // one K or V stage, bf16
+  static constexpr int Q_OFF = 0;                // bytes
+  static constexpr int K_OFF = Q_OFF + 2 * kRows * LD;
+  static constexpr int V_OFF = K_OFF + 2 * 2 * TILE;
+  static constexpr int POS_OFF = V_OFF + 2 * 2 * TILE;  // int [kRows]
+  static constexpr int MISC_OFF = POS_OFF + 4 * kRows;  // int [2]
+  static constexpr int BYTES = MISC_OFF + 16;
+  static_assert(K_OFF % 16 == 0 && V_OFF % 16 == 0, "16-byte stages");
+};
+
+// Stages kv tile `t` of batch row b, kv head kh into (dk, dv); keys past
+// Skv are zero-filled without a read.
+template <int HD>
+__device__ __forceinline__ void stage(const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v, int t,
+                                      int b, int kh, int Skv, int Kv,
+                                      bf16* dk, bf16* dv) {
+  constexpr int LD = Layout<HD>::LD, CPS = HD / 8;
+  static_assert(kKeys * CPS % kThreads == 0, "whole copy rounds");
+#pragma unroll
+  for (int i = 0; i < kKeys * CPS / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int j = c / CPS, ch = c - j * CPS;
+    const int s = t * kKeys + j;
+    const bool ok = s < Skv;
+    const size_t o = ok ? (((size_t)b * Skv + s) * Kv + kh) * HD + ch * 8 : 0;
+    tiled::cp_async16(dk + j * LD + ch * 8, k + o, ok);
+    tiled::cp_async16(dv + j * LD + ch * 8, v + o, ok);
+  }
 }
 
+// One block: query tile blockIdx.x (64 / g positions), kv head
+// blockIdx.y, batch row blockIdx.z.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const int* __restrict__ q_pos,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                       int H, int Kv, int causal, int window, float scale) {
-  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
-  constexpr int kQS = kBQ + kPad, kKS = kBK + kPad, kPS = kBK + 1;
-  constexpr int kCols = HD / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qT = smem;               // [HD][kQS]
-  float* kT = qT + HD * kQS;      // [HD][kKS]
-  float* vs = kT + HD * kKS;      // [kBK][HD]
-  float* ps = vs + kBK * HD;      // [kBQ][kPS]
-  float* m_s = ps + kBQ * kPS;
-  float* l_s = m_s + kBQ;
-  float* c_s = l_s + kBQ;
-  int* pos_s = (int*)(c_s + kBQ);
+flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const int* __restrict__ q_pos, bf16* __restrict__ out,
+                       int Sq, int Skv, int H, int Kv, int lg, int causal,
+                       int window, float scale) {
+  using L = Layout<HD>;
+  constexpr int LD = L::LD, CPS = HD / 8;
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  bf16* sq = reinterpret_cast<bf16*>(flash_smem + L::Q_OFF);
+  bf16* sk = reinterpret_cast<bf16*>(flash_smem + L::K_OFF);
+  bf16* sv = reinterpret_cast<bf16*>(flash_smem + L::V_OFF);
+  int* tpos = reinterpret_cast<int*>(flash_smem + L::POS_OFF);
+  int* misc = reinterpret_cast<int*>(flash_smem + L::MISC_OFF);
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / Kv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nq = min(kBQ, Sq - q0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = 1 << lg, np = kRows >> lg;  // positions of a block
+  const int p0 = blockIdx.x * np, kh = blockIdx.y, b = blockIdx.z;
+  const int cnt = min(np, Sq - p0);         // positions inside Sq
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i - (i / HD) * HD;
-    float x = 0.f;
-    if (r < nq) x = __bfloat162float(q[(((size_t)b * Sq + q0 + r) * H + h) * HD + d]);
-    qT[d * kQS + r] = x;
+  // the block's positions (causal) and their extent; -1 past Sq
+  if (warp == 0) {
+    int pmin = INT_MAX, pmax = INT_MIN;
+    for (int j = lane; j < np; j += 32) {
+      int pos = -1;
+      if (j < cnt) {
+        pos = causal ? q_pos[p0 + j] : 0;
+        pmin = min(pmin, pos);
+        pmax = max(pmax, pos);
+      }
+      tpos[j] = pos;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, o));
+      pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
+    }
+    if (lane == 0) {
+      misc[0] = pmin;
+      misc[1] = pmax;
+    }
   }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    pos_s[r] = causal && r < nq ? q_pos[q0 + r] : 0;
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+  // the query rows (zeros past Sq), in the first copy group
+#pragma unroll
+  for (int i = 0; i < kRows * CPS / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int m = c / CPS, ch = c - m * CPS;
+    const int j = m >> lg;
+    const bool ok = j < cnt;
+    const bf16* s =
+        ok ? q + (((size_t)b * Sq + p0 + j) * H + kh * g + (m & (g - 1))) *
+                         HD +
+                     ch * 8
+           : q;
+    tiled::cp_async16(sq + m * LD + ch * 8, s, ok);
   }
   __syncthreads();
-  // the kv range any row of this tile can see
-  int q_min = pos_s[0], q_max = pos_s[0];
-  for (int r = 1; r < nq; ++r) {
-    q_min = min(q_min, pos_s[r]);
-    q_max = max(q_max, pos_s[r]);
+  const int pmin = misc[0], pmax = misc[1];
+  // the kv tiles some row can see: [lo, hi) of the keys
+  int lo = 0, hi = Skv;
+  if (causal) {
+    hi = min(Skv, pmax + 1);
+    if (window) lo = max(0, pmin - window + 1);
   }
-  const int k_hi = causal ? min(Skv, q_max + 1) : Skv;
-  const int k_lo =
-      causal && window ? max(0, q_min - window + 1) / kBK * kBK : 0;
+  const int t_lo = lo / kKeys;
+  const int n_items = hi > lo ? (hi + kKeys - 1) / kKeys - t_lo : 0;
 
-  float acc[4][kCols];
+  uint32_t qa[HD / 16][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {tiled::kNone, tiled::kNone}, l[2] = {0.f, 0.f};
+  const float c2 = scale * tiled::kLog2e;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    const int nk = min(kBK, Skv - k0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int c = i / HD, d = i - (i / HD) * HD;
-      float kx = 0.f, vx = 0.f;
-      if (c < nk) {
-        const size_t off = (((size_t)b * Skv + k0 + c) * Kv + kh) * HD + d;
-        kx = __bfloat162float(k[off]);
-        vx = __bfloat162float(v[off]);
-      }
-      kT[d * kKS + c] = kx;
-      vs[c * HD + d] = vx;
-    }
+  if (n_items > 0) stage<HD>(k, v, t_lo, b, kh, Skv, Kv, sk, sv);
+  tiled::cp_async_commit();  // group 0: the query rows and the first tile
+  for (int it = 0; it < n_items; ++it) {
+    const int buf = it & 1;
+    const int s0 = (t_lo + it) * kKeys;
+    if (it + 1 < n_items)
+      stage<HD>(k, v, t_lo + it + 1, b, kh, Skv, Kv,
+                sk + (buf ^ 1) * L::TILE, sv + (buf ^ 1) * L::TILE);
+    tiled::cp_async_commit();
+    tiled::cp_async_wait<1>();
     __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qT + d * kQS + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kT + d * kKS + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qp = pos_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j, kp = k0 + c;
-        const bool live =
-            c < nk && (!causal || (kp <= qp && (!window || kp > qp - window)));
-        ps[r * kPS + c] = live ? s[i][j] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < kBQ; r += kThreads / 32) {
-      float* pr = ps + r * kPS;
-      const float s0 = pr[lane], s1 = pr[lane + 32];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
-    }
-    for (int c = 0; c < nk; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float vv = vs[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
+    if (it == 0) tiled::load_q<HD, LD>(qa, sq, warp, lane);
+    // every row sees every key of the tile: no mask (block-uniform)
+    bool full = s0 + kKeys <= Skv;
+    if (causal)
+      full = full && s0 + kKeys - 1 <= pmin &&
+             (!window || s0 > pmax - window);
+    // this thread's row warp * 16 + lane / 4 + 8 * ri: its position, read
+    // from shared memory on every tile rather than held in registers
+    const auto row_mask = [&](int ri) {
+      const int rpos = tpos[(warp * 16 + (lane >> 2) + ri * 8) >> lg];
+      return [=](int n) {
+        const int kp = s0 + n;
+        return kp < Skv &&
+               (!causal || (kp <= rpos && (!window || kp > rpos - window)));
+      };
+    };
+    tiled::fold_tile<HD, LD>(qa, sk + buf * L::TILE, sv + buf * L::TILE, full,
+                             c2, row_mask, m, l, o, lane);
+    __syncthreads();  // this stage is consumed before it is refilled
   }
-  __syncthreads();  // l_s is final
+  tiled::cp_async_wait<0>();
+
+  // out = O / l, rounded to bf16; rows past Sq are dropped
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    __nv_bfloat16* o = out + (((size_t)b * Sq + q0 + r) * H + h) * HD;
+  for (int ri = 0; ri < 2; ++ri) {
+    float lsum = l[ri];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const float den = fmaxf(lsum, 1e-30f);
+    const int mrow = warp * 16 + (lane >> 2) + ri * 8;
+    const int j = mrow >> lg;
+    if (j < cnt) {
+      bf16* dst = out +
+                  (((size_t)b * Sq + p0 + j) * H + kh * g + (mrow & (g - 1))) *
+                      HD +
+                  2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) o[tx + 16 * j] = __float2bfloat16(acc[i][j] / l);
+      for (int nd = 0; nd < HD / 8; ++nd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
+            __floats2bfloat162_rn(o[nd][2 * ri] / den,
+                                  o[nd][2 * ri + 1] / den);
+    }
   }
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, void* out, int B, int Sq, int Skv,
-                   int H, int Kv, int causal, int window, float scale,
+                   int H, int Kv, int lg, int causal, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_words<HD>();
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)q_pos, (__nv_bfloat16*)out, Sq,
-      Skv, H, Kv, causal, window, scale);
+  const size_t smem = Layout<HD>::BYTES;
+  auto kernel = flash_attention_kernel<HD>;
+  cudaError_t err = tiled::prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int np = kRows >> lg;
+  const dim3 grid((Sq + np - 1) / np, Kv, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)q_pos,
+      (bf16*)out, Sq, Skv, H, Kv, lg, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16; q_pos [Sq] int32 (read
-// only when causal; may be null otherwise); out [B, Sq, H*hd] bf16.  hd
-// must be 16, 32, 64 or 128; a window needs the causal form.
+// q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16, 16-byte aligned; q_pos [Sq]
+// int32 (read only when causal; may be null otherwise); out [B, Sq, H*hd]
+// bf16.  hd must be 16, 32, 64 or 128 and H / Kv one of 1, 2, 4, 8, 16; a
+// window needs the causal form.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, void* out, int B, int Sq,
                                int Skv, int H, int Kv, int hd, int causal,
                                int window, float scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (!causal && window) return (int)cudaErrorInvalidValue;
+  const int lg = tiled::log2_group(H, Kv);
+  if (lg < 0 || Skv < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
-    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
-    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
-    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, causal, window, scale, s);
+    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
+    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
+    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
+    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,47 +1,24 @@
-// Shared body of the port's bf16 full-cache span kernels, paged and
-// contiguous (paged_span_attention.cu, span_attention.cu: PERF.md rows 1
-// and 9), and of the int8 kernels' fresh span (through
-// paged_attention_quant.cuh).  The bf16 rolling span kernels have their own
-// tiled body (span_attention_tiled.cuh), the bf16 decode kernels their
-// split body (decode_attention_split.cuh); Rolling<...> below has no user
-// left.
+// The fp32 fresh-span fold of the port's int8 rolling span kernels
+// (paged_span_attention_rolling_quant.cu, span_attention_rolling_quant.cu,
+// through paged_attention_quant.cuh's rolling_span): after the int8 old
+// cache, a token folds the span's own bf16 K/V into the same running fp32
+// softmax (max, sum, accumulator), exactly the online softmax of the
+// reference's Pallas kernels.  The bf16 span kernels have their tiled body
+// (span_attention_tiled.cuh), the bf16 decode kernels their split body
+// (decode_attention_split.cuh).
 //
-// One thread block computes the attention of ONE query token for the g
-// query heads that share ONE kv head.  It folds one or more sources of
-// K/V into a running fp32 softmax (max, sum, accumulator), exactly the
-// online softmax of the reference's Pallas kernels.  A source is a list
-// of n candidate slots: slot i's K/V vector sits at `offset(i)` of the
-// source's K and V arrays and counts iff `valid(i)`.  Each tile of `tile`
-// slots is staged in shared memory (bf16 -> fp32), scored against the g
-// query heads (invalid slots score -1e30), and folded in.  Sources:
+// One thread block serves ONE query token and the g query heads that
+// share ONE kv head.  A source is a list of n candidate entries: entry i's
+// K/V vector sits at `offset(i)` of the source's K and V arrays and counts
+// iff `valid(i)`.  Each tile of `tile` entries is staged in shared memory
+// (bf16 -> fp32), scored against the g query heads (invalid entries score
+// -1e30), and folded in.  The one source is FreshSpan, the span's own K/V
+// [T, Kv, hd]: entry u is valid iff it is of the same row, at or before
+// the token, inside its window, and not bucket padding (u < n_valid).
 //
-//   PagedSlots    slots 0..n-1 of the token's block-table row, all valid
-//                 (full cache: n = pos + 1);
-//   RowSlots      the same slots of one row of a contiguous [R, S, Kv, hd]
-//                 cache (the contiguous KV layout): slot s of row r sits
-//                 at ((r * S + s) * Kv + kh) * hd;
-//   Rolling<...>  the old rolling cache of a windowed span, over either:
-//                 slots 0..min(off, w_slots)-1 of the row (w_slots = nb *
-//                 bs of the table, or S of a row), where slot s stores
-//                 position off-1-((off-1-s) mod w_slots), valid iff inside
-//                 the token's window;
-//   FreshSpan     the span's own K/V [T, Kv, hd]: entry u is valid iff it
-//                 is of the same row, at or before the token, inside its
-//                 window, and not bucket padding (u < n_valid).
-//
-// The paged and contiguous kernels differ only in the source's address
-// computation; with the same tile order their outputs are identical.
-// Slots past n are never read, so table entries past a row's prefix (the
-// trash block) are never touched.
-//
-// What bounds it: memory.  Each block reads its sources once; the
-// arithmetic is 4*g*hd flops per slot, far below the H100's 295 flop/byte
-// ridge.  This first version does not share a prefix between the tokens
-// of one row (a span of C tokens reads it C times, mostly from L2), and
-// uses no tensor cores, TMA or split-K.
+// What bounds it: memory, as the int8 kernels around it (4*g*hd flops per
+// entry, far below the H100's 295 flop/byte ridge).
 #pragma once
-
-#include <cassert>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,65 +73,6 @@ __device__ inline State carve(float* smem, int g, int hd, int tile) {
   s.c = s.l + g;
   return s;
 }
-
-// Loads this block's g query heads (q: their [g * hd] bf16 values) and
-// clears the softmax state.
-__device__ inline void init(const __nv_bfloat16* __restrict__ q, int g,
-                            int hd, const State& s) {
-  for (int i = threadIdx.x; i < g * hd; i += blockDim.x) {
-    s.q[i] = __bfloat162float(q[i]);
-    s.acc[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < g; i += blockDim.x) {
-    s.m[i] = kNegInf;
-    s.l[i] = 0.f;
-  }
-}
-
-// Fails loudly on a table entry outside the pool, before any read.
-__device__ inline void check_table(const int* __restrict__ table, int n_slots,
-                                   int bs, int n_blocks) {
-  for (int i = threadIdx.x; i < (n_slots + bs - 1) / bs; i += blockDim.x)
-    assert(table[i] >= 0 && table[i] < n_blocks);
-}
-
-// Slots 0..n-1 of one block-table row of a [n_blocks, bs, Kv, hd] cache.
-struct PagedSlots {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const int* table;
-  int bs, Kv, kh, hd;
-  __device__ size_t offset(int s) const {
-    return (((size_t)table[s / bs] * bs + s % bs) * Kv + kh) * hd;
-  }
-  __device__ bool valid(int) const { return true; }
-};
-
-// Slots 0..n-1 of row `row` of a contiguous [R, S, Kv, hd] cache.
-struct RowSlots {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  int row, S, Kv, kh, hd;
-  __device__ size_t offset(int s) const {
-    return (((size_t)row * S + s) * Kv + kh) * hd;
-  }
-  __device__ bool valid(int) const { return true; }
-};
-
-// The old rolling cache of a windowed span token at position `pos`, whose
-// row holds positions [0, off): slot s (s < min(off, w_slots)) stores
-// off-1-((off-1-s) mod w_slots), w_slots = nb * bs of the table (paged)
-// or S (a contiguous row).
-template <typename Slots>
-struct Rolling : Slots {
-  int off, pos, window, w_slots;
-  __device__ bool valid(int s) const {
-    const int stored = off - 1 - (off - 1 - s) % w_slots;
-    return stored > pos - window;
-  }
-};
-using RollingSlots = Rolling<PagedSlots>;
-using RowRollingSlots = Rolling<RowSlots>;
 
 // The span's own fresh K/V [T, Kv, hd], for the token of row `row` at
 // position `pos`.
@@ -244,47 +162,6 @@ __device__ inline void finish(__nv_bfloat16* __restrict__ out, int g, int hd,
   __syncthreads();
   for (int i = threadIdx.x; i < g * hd; i += blockDim.x)
     out[i] = __float2bfloat16(s.acc[i] / fmaxf(s.l[i / hd], 1e-30f));
-}
-
-// One token (q, out: its [H*hd] rows) over slots 0..n-1 of `src`, for
-// the g query heads of kv head kh.
-template <typename Src>
-__device__ inline void attend_source(const __nv_bfloat16* __restrict__ q,
-                                     const Src& src, int n, int kh, int g,
-                                     int hd, int tile, float scale,
-                                     __nv_bfloat16* __restrict__ out) {
-  // (named apart from the int8 kernels' byte-typed dynamic shared memory:
-  // one translation unit may hold both, and extern declarations of one
-  // name must agree in type)
-  extern __shared__ float attend_smem[];
-  const State s = carve(attend_smem, g, hd, tile);
-  const int head0 = kh * g;  // first query head of this kv head's group
-  init(q + head0 * hd, g, hd, s);
-  fold(src, n, g, hd, tile, scale, s);
-  finish(out + head0 * hd, g, hd, s);
-}
-
-// One token over slots 0..n_slots-1 of its table row (n_slots <= nb * bs):
-// q, out its [H*hd] rows; table [nb]; caches [n_blocks, bs, Kv, hd].
-__device__ inline void attend(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k_cache,
-                              const __nv_bfloat16* __restrict__ v_cache,
-                              const int* __restrict__ table, int n_slots,
-                              int kh, int Kv, int g, int hd, int bs,
-                              int n_blocks, int tile, float scale,
-                              __nv_bfloat16* __restrict__ out) {
-  // a corrupt table fails loudly rather than reading out of the pool
-  check_table(table, n_slots, bs, n_blocks);
-  attend_source(q, PagedSlots{k_cache, v_cache, table, bs, Kv, kh, hd},
-                n_slots, kh, g, hd, tile, scale, out);
-}
-
-// Launch-side shared-memory setup: above 48 KB a kernel must opt in.
-template <typename Kernel>
-inline cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace paged

@@ -49,9 +49,9 @@ paged_span_attention_rolling_kernel(
       rolling_smem + tiled::Layout<HD>::bytes(w_slots, T, 0));
   tiled::PagedRow src{k_cache, v_cache, tables + (size_t)row * nb, bs, Kv,
                       (int)blockIdx.y, n_blocks, stab};
-  tiled::attend<HD>(src, q, k_span, v_span, positions, offsets, plan, out, T,
-                    H, Kv, lg, B, w_slots, window, n_valid, scale,
-                    rolling_smem);
+  tiled::attend<HD, false>(src, q, k_span, v_span, positions, offsets, plan,
+                           out, T, H, Kv, lg, B, w_slots, window, n_valid,
+                           scale, rolling_smem);
 }
 
 template <int HD>
@@ -79,7 +79,7 @@ static int launch(const void* q, const void* k_cache, const void* v_cache,
 // span's scatter); k_span/v_span [T, Kv, hd] bf16; tables [B, nb],
 // positions/seq_idx/offsets [T] int32; plan: int32 workspace of plan_ints
 // entries (tiled::plan_ints(T, B, 64 / g)); out [T, H*hd] bf16.
-// H / Kv in {1, 2, 4, 8}, hd in {16, 32, 64, 128}.
+// H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}.
 extern "C" int paged_span_attention_rolling(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_span, const void* v_span, const void* tables,

@@ -3,50 +3,84 @@
 //
 // Replaces the TPU kernel repro/kernels/span_attention.py:132
 // (span_attention, body _kernel :76), window = 0 only (windowed models
-// keep rolling rows: span_attention_rolling.cu).  Token t of the packed
-// span attends, for each query head, to slots 0..positions[t] of row
-// seq_idx[t] of [R, S, Kv, hd] caches (the engine passes each token's
-// cache row, so the caches are its whole row pool, written in place).
-// Grid: one block per (token, kv head); the block reads its row and
-// position itself (the TPU kernel got them by scalar prefetch) and walks
-// only the slots of its prefix.  The same body as
-// paged_span_attention.cu over paged::RowSlots instead of the table, so
-// the two layouts give identical outputs.  Body, bound and design:
-// paged_attention.cuh.
-#include "paged_attention.cuh"
+// keep rolling rows: span_attention_rolling.cu).  The engine writes the
+// chunk's K/V into the rows first; token t of the packed span then
+// attends, for each query head, to slots 0..positions[t] (at most S of
+// them) of row seq_idx[t] of [R, S, Kv, hd] caches (the engine passes
+// each token's cache row, so the caches are its whole row pool, written
+// in place).
+//
+// The body of paged_span_attention.cu (span_attention_tiled.cuh, full-cache
+// mode) over tiled::ContiguousRow instead of the table: with nb * bs == S
+// the two give identical bits.  Body, grid, bound and design:
+// span_attention_tiled.cuh.
+#include "span_attention_tiled.cuh"
 
-__global__ void __launch_bounds__(paged::kThreads)
-span_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k_cache,
-                      const __nv_bfloat16* __restrict__ v_cache,
-                      const int* __restrict__ positions,
-                      const int* __restrict__ seq_idx,
-                      __nv_bfloat16* __restrict__ out, int H, int Kv, int hd,
-                      int R, int S, int tile, float scale) {
-  const int t = blockIdx.x, kh = blockIdx.y;
-  const int row = seq_idx[t], pos = positions[t];
-  assert(row >= 0 && row < R && pos >= 0);  // a corrupt batch fails loudly
-  paged::attend_source(q + (size_t)t * H * hd,
-                       paged::RowSlots{k_cache, v_cache, row, S, Kv, kh, hd},
-                       min(pos + 1, S), kh, H / Kv, hd, tile, scale,
-                       out + (size_t)t * H * hd);
+// (two blocks an SM, as the shared memory allows: without the second
+// bound ptxas spills at hd 16)
+template <int HD>
+__global__ void __launch_bounds__(tiled::kThreads, 2)
+span_attention_kernel(
+    const tiled::bf16* __restrict__ q, const tiled::bf16* __restrict__ k_cache,
+    const tiled::bf16* __restrict__ v_cache, const int* __restrict__ positions,
+    const int* __restrict__ plan, tiled::bf16* __restrict__ out, int T, int H,
+    int Kv, int lg, int R, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char span_smem[];
+  const int tq = tiled::kRows >> lg;
+  const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, R, tq);
+  if ((int)blockIdx.x >= *p.n_tiles) return;
+  tiled::ContiguousRow src{k_cache, v_cache, p.tiles[3 * blockIdx.x], S, Kv,
+                           (int)blockIdx.y};
+  tiled::attend<HD, true>(src, q, nullptr, nullptr, positions, nullptr, plan,
+                          out, T, H, Kv, lg, R, S, 0, T, scale, span_smem);
 }
 
-// q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16; positions/seq_idx [T]
-// int32; out [T, H*hd] bf16.
+template <int HD>
+static int launch(const void* q, const void* k_cache, const void* v_cache,
+                  const void* positions, void* plan, void* out, int T, int H,
+                  int Kv, int lg, int R, int S, float scale,
+                  cudaStream_t stream) {
+  const size_t smem = tiled::Layout<HD>::bytes(S, 0, 0);
+  auto kernel = span_attention_kernel<HD>;
+  cudaError_t err = tiled::prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiled::max_tiles(T, R, tiled::kRows >> lg), Kv);
+  kernel<<<grid, tiled::kThreads, smem, stream>>>(
+      (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
+      (const tiled::bf16*)v_cache, (const int*)positions, (const int*)plan,
+      (tiled::bf16*)out, T, H, Kv, lg, R, S, scale);
+  return (int)cudaGetLastError();
+}
+
+// q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16 (the span already
+// written); positions/seq_idx [T] int32; plan: int32 workspace of
+// plan_ints entries (tiled::plan_ints(T, R, 64 / g)); out [T, H*hd] bf16.
+// H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}.
 extern "C" int span_attention(const void* q, const void* k_cache,
                               const void* v_cache, const void* positions,
-                              const void* seq_idx, void* out, int T, int H,
-                              int Kv, int hd, int R, int S, int tile,
-                              float scale, void* stream) {
+                              const void* seq_idx, void* plan, void* out,
+                              int T, int H, int Kv, int hd, int R, int S,
+                              long long plan_ints, float scale,
+                              void* stream) {
   if (T == 0) return 0;
-  const size_t smem = sizeof(float) * paged::smem_floats(H / Kv, hd, tile);
-  cudaError_t err = paged::prepare_smem(span_attention_kernel, smem);
+  const int lg = tiled::log2_group(H, Kv);
+  if (lg < 0 || R < 1 || S < 1 ||
+      plan_ints < tiled::plan_ints(T, R, tiled::kRows >> lg))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
+      (const int*)seq_idx, T, R, tiled::kRows >> lg, (int*)plan);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  span_attention_kernel<<<dim3(T, Kv), paged::kThreads, smem,
-                          (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache,
-      (const __nv_bfloat16*)v_cache, (const int*)positions,
-      (const int*)seq_idx, (__nv_bfloat16*)out, H, Kv, hd, R, S, tile, scale);
-  return (int)cudaGetLastError();
+#define SPAN_LAUNCH(HD)                                                      \
+  return launch<HD>(q, k_cache, v_cache, positions, plan, out, T, H, Kv, lg, \
+                    R, S, scale, s)
+  switch (hd) {
+    case 16: SPAN_LAUNCH(16);
+    case 32: SPAN_LAUNCH(32);
+    case 64: SPAN_LAUNCH(64);
+    case 128: SPAN_LAUNCH(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPAN_LAUNCH
 }

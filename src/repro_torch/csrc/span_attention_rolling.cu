@@ -39,8 +39,9 @@ span_attention_rolling_kernel(
   if ((int)blockIdx.x >= *p.n_tiles) return;
   tiled::ContiguousRow src{k_cache, v_cache, p.tiles[3 * blockIdx.x], S, Kv,
                            (int)blockIdx.y};
-  tiled::attend<HD>(src, q, k_span, v_span, positions, offsets, plan, out, T,
-                    H, Kv, lg, R, S, window, n_valid, scale, rolling_smem);
+  tiled::attend<HD, false>(src, q, k_span, v_span, positions, offsets, plan,
+                           out, T, H, Kv, lg, R, S, window, n_valid, scale,
+                           rolling_smem);
 }
 
 template <int HD>
@@ -66,7 +67,7 @@ static int launch(const void* q, const void* k_cache, const void* v_cache,
 // q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16 (before the span's
 // scatter); k_span/v_span [T, Kv, hd] bf16; positions/seq_idx/offsets [T]
 // int32; plan: int32 workspace of plan_ints entries (tiled::plan_ints(T,
-// R, 64 / g)); out [T, H*hd] bf16.  H / Kv in {1, 2, 4, 8}, hd in {16,
+// R, 64 / g)); out [T, H*hd] bf16.  H / Kv in {1, 2, 4, 8, 16}, hd in {16,
 // 32, 64, 128}.
 extern "C" int span_attention_rolling(
     const void* q, const void* k_cache, const void* v_cache,

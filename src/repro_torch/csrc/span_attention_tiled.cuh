@@ -1,12 +1,23 @@
-// Tiled body of the two bf16 rolling span-attention kernels, paged
-// (paged_span_attention_rolling.cu, PERF.md row 6) and over contiguous rows
-// (span_attention_rolling.cu, row 11), on the tensor cores.
+// Tiled body of the four bf16 span-attention kernels on the tensor cores:
+// the full-cache kernels, paged (paged_span_attention.cu, PERF.md row 1)
+// and over contiguous rows (span_attention.cu, row 9), and the rolling
+// kernels, paged (paged_span_attention_rolling.cu, row 6) and over
+// contiguous rows (span_attention_rolling.cu, row 11).
 //
-// Replaces the TPU kernels repro/kernels/span_attention.py:703
-// (paged_span_attention_rolling) and :519 (span_attention_rolling).  Token
-// t of a packed span (position pos, cache row seq_idx[t], whose rolling
-// cache holds positions [0, off = offsets[t]) with position p at slot
-// p mod w_slots) attends, under one running fp32 softmax:
+// Replaces the TPU kernels repro/kernels/span_attention.py:611
+// (paged_span_attention), :132 (span_attention), :703
+// (paged_span_attention_rolling) and :519 (span_attention_rolling).
+//
+// Full cache (FULL = true).  The engine writes the chunk's K/V into the
+// cache before the call; token t (position pos, cache row seq_idx[t])
+// attends slots [0, min(pos + 1, w_slots)) of its row, w_slots the table's
+// nb * bs or the row's S.  Every token of a query tile sees a prefix of its
+// row from slot 0, so only the tiles that cross some token's last slot
+// need the mask, and tiles past the tile's longest prefix are skipped.
+//
+// Rolling (FULL = false).  Token t (position pos, cache row seq_idx[t],
+// whose rolling cache holds positions [0, off = offsets[t]) with position
+// p at slot p mod w_slots) attends, under one running fp32 softmax:
 //   1. the old cache: slot s < min(off, w_slots) counts iff the position it
 //      stores, off-1-((off-1-s) mod w_slots), lies inside the window
 //      (> pos - W).  Those slots form one arc of the ring: positions
@@ -14,13 +25,19 @@
 //   2. the span's own fresh K/V: entry u counts iff it is of the same row,
 //      at or before pos, inside the window, and u < n_valid (bucket padding
 //      repeats the last valid token).
+// (The full-cache mode is the arc from slot 0 of length min(pos + 1,
+// w_slots), with no fresh span.)
 //
-// What bounds it.  At chip_smoke.py's case (mixtral-8x7b widths: H 32,
-// Kv 8, hd 128; a 256-token chunk over 4 rows, W 4096) the least time is
-// 0.0167 ms for the bytes (each row's visible window read once) and about
-// 0.013 ms for the operations at the bf16 tensor-core rate: the two are
-// close, so the design has to cut both the bytes re-read and the
-// instructions around each product.  What the design does:
+// What bounds it.  At chip_smoke.py's rolling case (mixtral-8x7b widths:
+// H 32, Kv 8, hd 128; a 256-token chunk over 4 rows, W 4096) the least
+// time is 0.0167 ms for the bytes (each row's visible window read once)
+// and about 0.013 ms for the operations at the bf16 tensor-core rate: the
+// two are close, so the design has to cut both the bytes re-read and the
+// instructions around each product.  The full-cache case (stablelm: H = Kv
+// = 32, hd 64, the same chunk over prefixes of 96-512 slots) is bound by
+// its bytes, 0.0031 ms: a few thousand slots of 128 B of K and V per kv
+// head, which a block per token would read once per token.  What the
+// design does:
 //
 //   1. Query tiles.  One block (4 warps) computes 64 query rows for one kv
 //      head: 64/g tokens of ONE cache row x the g query heads of that kv
@@ -37,10 +54,9 @@
 //      FlashAttention-2); Q stays in registers.  The online softmax is
 //      kept per query row in fp32 registers (exp2 of scores pre-scaled by
 //      log2 e).  P is split into bf16 hi + lo = bf16(p - hi) and both are
-//      multiplied into the same fp32 accumulator: one bf16 P would miss
-//      the kernels' limit (2^-7 |plain| + 1e-5) at mixtral's widths by 17x
-//      (tests/test_torch_rolling_tiles.py).  Each query row's mask comes
-//      from its own pos and off (its arc; its fresh-window bounds).
+//      multiplied into the same fp32 accumulator (tiled::fold_tile).  Each
+//      query row's mask comes from its own pos and off (its arc; its
+//      fresh-window bounds).
 //   3. Asynchronous staging.  K and V tiles of 64 slots are staged in bf16
 //      with 16-byte cp.async copies into a 2-deep ring (one kv head's slot
 //      is hd * 2 contiguous bytes), rows padded by 16 bytes so ldmatrix
@@ -49,25 +65,25 @@
 //      page), so a slot's address is a shared-memory read and a multiply-
 //      shift division by the page size.  Tiles that no query row of the
 //      block can see are skipped, and tiles that every query row sees
-//      whole skip the mask; slots past the block's largest
-//      min(off, w_slots) and fresh entries past n_valid are zero-filled
-//      and never read.
-//   4. The fresh span.  A block folds only its own row's span entries (the
-//      plan lists them, wherever they lie), staged the same way, after the
-//      old cache.
+//      whole skip the mask; slots past the block's largest visible extent
+//      and fresh entries past n_valid are zero-filled and never read.
+//   4. The fresh span (rolling only).  A block folds only its own row's
+//      span entries (the plan lists them, wherever they lie), staged the
+//      same way, after the old cache.
 //   5. Occupancy.  Shared memory holds the bf16 values themselves, no fp32
 //      copies: about 88 KB a block at hd 128, two blocks an SM.
 //
-// Invariants.  The fold order is fixed: old-cache tiles of 64 slots from
-// slot 0, then the row's fresh entries in index order in tiles of 64.
-// A tile a query row cannot see leaves its state bit for bit as it was
-// (its probabilities are exactly 0 and its max does not move), so skipping
-// it changes nothing; the paged and contiguous kernels therefore give
-// identical bits whenever the table's width nb * bs equals the row width
-// S.  No atomics, no split-K: two launches repeat bit for bit.
-// Instantiated for hd in {16, 32, 64, 128}; g in {1, 2, 4, 8} is a
-// runtime shift.  The copy and tensor-core primitives are in
-// tiled_primitives.cuh, shared with the split decode body.
+// Invariants.  The fold order is fixed: cache tiles of 64 slots from
+// slot 0, then (rolling) the row's fresh entries in index order in tiles
+// of 64.  A tile a query row cannot see leaves its state bit for bit as it
+// was (its probabilities are exactly 0 and its max does not move), so
+// skipping it changes nothing; the paged and contiguous kernels of each
+// mode therefore give identical bits whenever the table's width nb * bs
+// equals the row width S.  No atomics, no split-K: two launches repeat
+// bit for bit.  Instantiated for hd in {16, 32, 64, 128}; g in {1, 2, 4,
+// 8, 16} is a runtime shift (at g 16 a tile is 4 tokens x 16 heads).  The
+// copy and tensor-core primitives and the tile step are in
+// tiled_primitives.cuh, shared with the flash and split decode bodies.
 #pragma once
 
 #include <cassert>
@@ -305,9 +321,11 @@ __device__ __forceinline__ void stage(
 }
 
 // The block's 64 query rows (tile blockIdx.x of the plan, kv head
-// blockIdx.y) over its row's old cache (src) and fresh span entries.
-// q [T, H, hd]; k_span/v_span [T, Kv, hd]; out [T, H * hd].
-template <int HD, class Src>
+// blockIdx.y) over its row's cache (src) and, rolling, its fresh span
+// entries.  q [T, H, hd]; k_span/v_span [T, Kv, hd] (rolling); out
+// [T, H * hd].  FULL: offsets, k_span and v_span are not read; window and
+// n_valid are ignored.
+template <int HD, bool FULL, class Src>
 __device__ __forceinline__ void attend(
     Src src, const bf16* __restrict__ q, const bf16* __restrict__ k_span,
     const bf16* __restrict__ v_span, const int* __restrict__ positions,
@@ -326,7 +344,7 @@ __device__ __forceinline__ void attend(
   if (tile >= *p.n_tiles) return;
   const int row = p.tiles[3 * tile], qfirst = p.tiles[3 * tile + 1];
   const int cnt = p.tiles[3 * tile + 2];
-  const int ffirst = p.row_start[row], nfresh = p.row_n[row];
+  const int ffirst = p.row_start[row], nfresh = FULL ? 0 : p.row_n[row];
 
   bf16* sq = reinterpret_cast<bf16*>(smem + L::Q_OFF);
   bf16* sk = reinterpret_cast<bf16*>(smem + L::K_OFF);
@@ -347,13 +365,20 @@ __device__ __forceinline__ void attend(
       if (j < cnt) {
         t = p.order[qfirst + j];
         pos = positions[t];
-        const int off = offsets[t];
-        // a corrupt batch fails loudly
-        assert(pos >= off && off >= 0);
-        const int lo = max(max(pos - window + 1, off - w_slots), 0);
-        len = off - lo;  // positions lo..off-1
-        a = len > 0 ? lo % w_slots : 0;
-        n_old = max(n_old, min(off, w_slots));
+        if (FULL) {
+          // a corrupt batch fails loudly
+          assert(pos >= 0);
+          len = min(pos + 1, w_slots);  // slots 0..len-1
+          n_old = max(n_old, len);
+        } else {
+          const int off = offsets[t];
+          // a corrupt batch fails loudly
+          assert(pos >= off && off >= 0);
+          const int lo = max(max(pos - window + 1, off - w_slots), 0);
+          len = off - lo;  // positions lo..off-1
+          a = len > 0 ? lo % w_slots : 0;
+          n_old = max(n_old, min(off, w_slots));
+        }
         pmin = min(pmin, pos);
         pmax = max(pmax, pos);
       }
@@ -456,126 +481,32 @@ __device__ __forceinline__ void attend(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        ldsm_x4(qa[ks], sq + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                            ((lane >> 4) << 3));
-    }
-    const bf16* tk = sk + buf * L::TILE;
-    const bf16* tv = sv + buf * L::TILE;
-
-    // S = Q K^T: 16 rows x 64 slots per warp
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-      for (int nb2 = 0; nb2 < 4; ++nb2) {
-        uint32_t b[4];
-        ldsm_x4(b, tk + (nb2 * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD +
-                       ks * 16 + (((lane >> 3) & 1) << 3));
-        mma(s[2 * nb2], qa[ks], b[0], b[1]);
-        mma(s[2 * nb2 + 1], qa[ks], b[2], b[3]);
-      }
-    }
-
-    // masks and the online softmax, per query row
+    if (it == 0) load_q<HD, LD>(qa, sq, warp, lane);
     const bool old = item < n_old_t;
     const int s0 = item * kSlots;
-    float corr[2];
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      // this thread's query row warp * 16 + lane / 4 + 8 * ri: its token's
-      // arc and position, read from shared memory on every tile rather
-      // than held in registers (hd 64 would spill); pos -1 past the tile's
-      // tokens sees nothing
+    const int* up = upos + buf * kSlots;
+    // this thread's query row warp * 16 + lane / 4 + 8 * ri: its token's
+    // arc and position, read from shared memory on every tile rather than
+    // held in registers (hd 64 would spill); pos -1 past the tile's tokens
+    // sees nothing
+    const auto row_mask = [&](int ri) {
       const int j = (warp * 16 + (lane >> 2) + ri * 8) >> lg;
       const int rpos = tpos[j], ra = tarc[j], rlen = tlen[j];
-      float mx = kNone;
-      if (full) {  // block-uniform: every score counts
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const float x = s[nb][2 * ri + cc] * c2;
-            s[nb][2 * ri + cc] = x;
-            mx = fmaxf(mx, x);
-          }
+      return [=](int n) {
+        if (old) {
+          const int sl = s0 + n;
+          if (FULL) return sl < rlen;
+          // the last tile may run past w_slots (w_slots % 64 != 0)
+          int d = sl - ra;
+          if (d < 0) d += w_slots;
+          return sl < w_slots && d < rlen;
         }
-      } else {
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int n = nb * 8 + 2 * (lane & 3) + cc;
-            bool vis;
-            if (old) {
-              // the last tile may run past w_slots (w_slots % 64 != 0)
-              const int sl = s0 + n;
-              int d = sl - ra;
-              if (d < 0) d += w_slots;
-              vis = sl < w_slots && d < rlen;
-            } else {
-              const int up = upos[buf * kSlots + n];
-              vis = up <= rpos && up > rpos - window;
-            }
-            const float x = vis ? s[nb][2 * ri + cc] * c2 : -INFINITY;
-            s[nb][2 * ri + cc] = x;
-            mx = fmaxf(mx, x);
-          }
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[ri], mx);
-      corr[ri] = exp2f(m[ri] - mn);
-      m[ri] = mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const float pr = exp2f(s[nb][2 * ri + cc] - mn);  // masked: 0
-          s[nb][2 * ri + cc] = pr;
-          sum += pr;
-        }
-      }
-      l[ri] = l[ri] * corr[ri] + sum;
-    }
-    // the accumulator's rescale; a factor of exactly 1 (no row's max
-    // moved) changes no bit, so the warp skips it
-    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
-#pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        o[nd][0] *= corr[0];
-        o[nd][1] *= corr[0];
-        o[nd][2] *= corr[1];
-        o[nd][3] *= corr[1];
-      }
-    }
-
-    // O += (P_hi + P_lo) V
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t ah[4], al[4];
-      split(s[2 * ks][0], s[2 * ks][1], ah[0], al[0]);
-      split(s[2 * ks][2], s[2 * ks][3], ah[1], al[1]);
-      split(s[2 * ks + 1][0], s[2 * ks + 1][1], ah[2], al[2]);
-      split(s[2 * ks + 1][2], s[2 * ks + 1][3], ah[3], al[3]);
-#pragma unroll
-      for (int nd2 = 0; nd2 < HD / 16; ++nd2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, tv + (ks * 16 + (((lane >> 3) & 1) << 3) +
-                               (lane & 7)) * LD +
-                              nd2 * 16 + ((lane >> 4) << 3));
-        mma(o[2 * nd2], ah, b[0], b[1]);
-        mma(o[2 * nd2], al, b[0], b[1]);
-        mma(o[2 * nd2 + 1], ah, b[2], b[3]);
-        mma(o[2 * nd2 + 1], al, b[2], b[3]);
-      }
-    }
+        const int u = up[n];
+        return u <= rpos && u > rpos - window;
+      };
+    };
+    fold_tile<HD, LD>(qa, sk + buf * L::TILE, sv + buf * L::TILE, full, c2,
+                      row_mask, m, l, o, lane);
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_async_wait<0>();
@@ -598,18 +529,6 @@ __device__ __forceinline__ void attend(
             __floats2bfloat162_rn(o[nd][2 * ri] / den,
                                   o[nd][2 * ri + 1] / den);
     }
-  }
-}
-
-// Host side: g as a shift (g in {1, 2, 4, 8}), or -1.
-inline int log2_group(int H, int Kv) {
-  if (Kv < 1 || H % Kv) return -1;
-  switch (H / Kv) {
-    case 1: return 0;
-    case 2: return 1;
-    case 4: return 2;
-    case 8: return 3;
-    default: return -1;
   }
 }
 

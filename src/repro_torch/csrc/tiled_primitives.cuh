@@ -1,12 +1,15 @@
-// Primitives of the port's tensor-core attention bodies: the rolling span
-// body (span_attention_tiled.cuh, PERF.md rows 6 and 11) and the split
+// Primitives of the port's tensor-core attention bodies: the span body
+// (span_attention_tiled.cuh, PERF.md rows 1, 6, 9 and 11), the flash
+// prefill body (flash_attention.cu, rows 3, 3n and 3w) and the split
 // decode body (decode_attention_split.cuh, rows 2, 2c, 2r and 2cr).
 // 16-byte cp.async copies (zero-filled where there is nothing to read),
 // ldmatrix (.trans for V), mma.sync.m16n8k16 bf16 products into fp32,
-// the bf16 hi + lo split of fp32 probabilities, and a multiply-shift
-// division by the page size.
+// the bf16 hi + lo split of fp32 probabilities, a multiply-shift
+// division by the page size, and fold_tile: one 64-slot K/V tile folded
+// into a warp's 16 query rows (S = Q K^T, the online softmax, O += P V).
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -98,6 +101,152 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---------------------------------------------------------------------------
+// A 64-query-row block's tile step (the span and flash bodies): 4 warps,
+// warp w owns query rows 16w..16w+15; a thread holds rows lane / 4 and
+// lane / 4 + 8 of its warp (ri = 0, 1) and, of each 8-slot group nb of the
+// tile, slots nb * 8 + 2 * (lane % 4) + {0, 1}.  K/V tiles are [64][LD]
+// bf16 in shared memory (LD = HD + 8: rows padded by 16 bytes, so
+// ldmatrix reads without bank conflicts).
+// ---------------------------------------------------------------------------
+
+// The warp's Q fragments, from the block's [64][LD] query rows.
+template <int HD, int LD>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4],
+                                       const bf16* sq, int warp, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks)
+    ldsm_x4(qa[ks], sq + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                        ((lane >> 4) << 3));
+}
+
+// Folds one tile into the warp's running softmax (m, l: the thread's two
+// rows' max and sum, in log2 units; o: its accumulator fragments).
+//   S = Q K^T, 16 rows x 64 slots, on the tensor cores; scores times c2 =
+//   scale * log2 e; masked scores are -inf.  `full` (block-uniform): every
+//   row sees every slot, no mask.  Otherwise `row(ri)` gives the predicate
+//   of the thread's row ri: vis(n), does it see slot n of the tile.
+//   The online softmax in fp32 with exp2; a row that sees nothing keeps
+//   its state bit for bit (p = 0, its max unmoved: corr = 1).
+//   O += (P_hi + P_lo) V with P = bf16 hi + lo = bf16(p - hi): one bf16 P
+//   misses the kernels' limit (2^-7 |plain| + 1e-5) at mixtral's widths
+//   by 17x (tests/test_torch_rolling_tiles.py).
+// The fold order is the call order; nothing here depends on other blocks.
+template <int HD, int LD, class RowMask>
+__device__ __forceinline__ void fold_tile(
+    const uint32_t (&qa)[HD / 16][4], const bf16* tk, const bf16* tv,
+    bool full, float c2, const RowMask& row, float (&m)[2], float (&l)[2],
+    float (&o)[HD / 8][4], int lane) {
+  // S = Q K^T: 16 rows x 64 slots per warp
+  float s[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+    for (int nb2 = 0; nb2 < 4; ++nb2) {
+      uint32_t b[4];
+      ldsm_x4(b, tk + (nb2 * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD +
+                     ks * 16 + (((lane >> 3) & 1) << 3));
+      mma(s[2 * nb2], qa[ks], b[0], b[1]);
+      mma(s[2 * nb2 + 1], qa[ks], b[2], b[3]);
+    }
+  }
+
+  // masks and the online softmax, per query row
+  float corr[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const auto vis = row(ri);
+    float mx = kNone;
+    if (full) {  // block-uniform: every score counts
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float x = s[nb][2 * ri + cc] * c2;
+          s[nb][2 * ri + cc] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int n = nb * 8 + 2 * (lane & 3) + cc;
+          const float x = vis(n) ? s[nb][2 * ri + cc] * c2 : -INFINITY;
+          s[nb][2 * ri + cc] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m[ri], mx);
+    corr[ri] = exp2f(m[ri] - mn);
+    m[ri] = mn;
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const float pr = exp2f(s[nb][2 * ri + cc] - mn);  // masked: 0
+        s[nb][2 * ri + cc] = pr;
+        sum += pr;
+      }
+    }
+    l[ri] = l[ri] * corr[ri] + sum;
+  }
+  // the accumulator's rescale; a factor of exactly 1 (no row's max
+  // moved) changes no bit, so the warp skips it
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      o[nd][0] *= corr[0];
+      o[nd][1] *= corr[0];
+      o[nd][2] *= corr[1];
+      o[nd][3] *= corr[1];
+    }
+  }
+
+  // O += (P_hi + P_lo) V
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t ah[4], al[4];
+    split(s[2 * ks][0], s[2 * ks][1], ah[0], al[0]);
+    split(s[2 * ks][2], s[2 * ks][3], ah[1], al[1]);
+    split(s[2 * ks + 1][0], s[2 * ks + 1][1], ah[2], al[2]);
+    split(s[2 * ks + 1][2], s[2 * ks + 1][3], ah[3], al[3]);
+#pragma unroll
+    for (int nd2 = 0; nd2 < HD / 16; ++nd2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, tv + (ks * 16 + (((lane >> 3) & 1) << 3) +
+                             (lane & 7)) * LD +
+                            nd2 * 16 + ((lane >> 4) << 3));
+      mma(o[2 * nd2], ah, b[0], b[1]);
+      mma(o[2 * nd2], al, b[0], b[1]);
+      mma(o[2 * nd2 + 1], ah, b[2], b[3]);
+      mma(o[2 * nd2 + 1], al, b[2], b[3]);
+    }
+  }
+}
+
+// Host side: g = H / Kv of the 64-row bodies (span, flash) as a shift
+// (g in {1, 2, 4, 8, 16}: a block's 64 rows are 64 / g tokens x g heads),
+// or -1.
+inline int log2_group(int H, int Kv) {
+  if (Kv < 1 || H % Kv) return -1;
+  switch (H / Kv) {
+    case 1: return 0;
+    case 2: return 1;
+    case 4: return 2;
+    case 8: return 3;
+    case 16: return 4;
+    default: return -1;
+  }
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in.

@@ -17,8 +17,6 @@ import torch
 
 from repro_torch.models.attention import decode_quant_pv
 
-TILE = 64                   # KV slots staged in shared memory per step
-
 # A kernel (bf16 in, fp32 inside, bf16 out) against its plain version run
 # in fp32 on the same values: |kernel - plain| <= KERNEL_REL * |plain| +
 # KERNEL_ABS, one bf16 step of the output (2^-7 relative; rounding moves it
@@ -99,25 +97,27 @@ def quant_flip_term(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     return (steps * ps[..., None]).reshape(b, h * hd)
 
 
-# The tiled rolling span body (csrc/span_attention_tiled.cuh): blocks of
-# QUERY_ROWS query rows, 64 / g tokens x g heads of one kv head
+# The tiled bodies (csrc/span_attention_tiled.cuh: the bf16 span kernels,
+# full-cache and rolling; csrc/flash_attention.cu): blocks of QUERY_ROWS
+# query rows, 64 / g tokens (or positions) x g heads of one kv head
 QUERY_ROWS = 64
-TILED_GROUPS = (1, 2, 4, 8)         # g = H / Kv
+TILED_GROUPS = (1, 2, 4, 8, 16)     # g = H / Kv
 TILED_WIDTHS = (16, 32, 64, 128)    # hd
 
 
 def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
-    """The tiled body's shapes, for a CUDA call: g = H / Kv in
-    TILED_GROUPS, hd in TILED_WIDTHS, 16-byte aligned data (cp.async).
-    Raises ValueError; the caller never falls back to the plain version."""
-    h, hd = q.shape[1], q.shape[2]
-    if h // kv_heads not in TILED_GROUPS or hd not in TILED_WIDTHS:
-        raise ValueError(f"the tiled rolling kernel takes g = H / Kv in "
-                         f"{TILED_GROUPS} and hd in {TILED_WIDTHS}, got g = "
-                         f"{h // kv_heads}, hd = {hd}")
+    """The tiled bodies' shapes, for a CUDA call (q [..., H, hd]): g = H /
+    Kv in TILED_GROUPS, hd in TILED_WIDTHS, 16-byte aligned data
+    (cp.async).  Raises ValueError; the caller never falls back to the
+    plain version."""
+    h, hd = q.shape[-2], q.shape[-1]
+    if h % kv_heads or h // kv_heads not in TILED_GROUPS \
+            or hd not in TILED_WIDTHS:
+        raise ValueError(f"the tiled kernels take g = H / Kv in "
+                         f"{TILED_GROUPS} and hd in {TILED_WIDTHS}, got "
+                         f"H = {h}, Kv = {kv_heads}, hd = {hd}")
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the tiled rolling kernel needs 16-byte aligned "
-                         "inputs")
+        raise ValueError("the tiled kernels need 16-byte aligned inputs")
 
 
 # The split decode body of the bf16 decode kernels

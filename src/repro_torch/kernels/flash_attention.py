@@ -8,11 +8,12 @@ CUDA kernel: ``csrc/flash_attention.cu``, which replaces the TPU kernel
 ``repro/kernels/ops.py:27`` (``flash_attention_bshd``): it takes the
 model's [B, S, H, hd] layout and returns [B, S, H*hd].  Memory bounds it
 at the engine's prompt lengths (up to S ~ 1200 with H = Kv; the bf16
-tensor cores beyond, and for the encoder's 1500 frames); this first
-version runs fp32 FMAs in 64 x 64 tiles with an fp32 online softmax,
-skipping whole tiles outside the causal (and window) band.  The two forms
-count their launches apart: :func:`flash_attention` (causal) and
-:func:`flash_attention_noncausal`.
+tensor cores beyond, and for the encoder's 1500 frames).  One block of 4
+warps computes 64 query rows (64 / g positions x the g heads of one kv
+head) on the tensor cores (``mma.sync``, P as bf16 hi + lo) over K/V
+tiles of 64 keys staged by ``cp.async``, skipping whole tiles outside the
+causal (and window) band.  The two forms count their launches apart:
+:func:`flash_attention` (causal) and :func:`flash_attention_noncausal`.
 
 Plain version: :func:`flash_attention_plain`, the reference's prefill
 attention with its dtype casts: ``repro.models.attention.
@@ -34,7 +35,7 @@ from repro_torch.models.attention import chunked_attention, \
     cross_attention, local_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-HEAD_DIMS = (16, 32, 64, 128)        # the kernel's compiled head widths
+HEAD_DIMS = _paged.TILED_WIDTHS      # the kernel's compiled head widths
 
 
 @functools.cache
@@ -76,7 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv tile (query block with a window) is ``kv_block`` (the kernel's
     tiles are 64 keys wide; the tile changes only the order of fp32 sums,
     and in bf16 where the probabilities round); CUDA tensors launch the
-    kernel (bf16, hd in ``HEAD_DIMS``), counted by
+    kernel (bf16, hd in ``HEAD_DIMS``, H / Kv in ``_paged.TILED_GROUPS``,
+    16-byte aligned; other shapes raise ValueError), counted by
     :func:`flash_attention` (causal) or :func:`flash_attention_noncausal`."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be [B, S, H, hd] and k, v one [B, S, Kv, "
@@ -115,10 +117,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes hd in {HEAD_DIMS}, got {hd}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel needs contiguous inputs")
+    _paged.check_tiled(q, kv, (q, k, v))
     out = torch.empty((b, sq, h * hd), dtype=q.dtype, device=q.device)
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    q_positions.data_ptr() if causal else None,

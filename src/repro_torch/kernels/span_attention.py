@@ -5,8 +5,10 @@ CUDA kernels, paged:
 
 - ``csrc/paged_span_attention.cu`` replaces the TPU kernel
   ``repro/kernels/span_attention.py:611`` (``paged_span_attention``).
-  Its design (one block per token and kv head, shared-memory tiles, fp32
-  online softmax) is described in ``csrc/paged_attention.cuh``.
+  Its body is ``csrc/span_attention_tiled.cuh`` in its full-cache mode: a
+  planning pass groups the span's tokens by row, then one block computes
+  64 query rows (64 / g tokens of one row x g heads) of one kv head on the
+  tensor cores, over each row's prefix read once per block.
 - ``csrc/paged_span_attention_quant.cu`` replaces
   ``repro/kernels/span_attention.py:656`` (``paged_span_attention_quant``)
   for ``kv_quant`` models: exact int8 dots, q and the probabilities
@@ -18,9 +20,7 @@ CUDA kernels, paged:
   rolling cache keeps position p at slot p % W: two sources, the old cache
   through the table and the span's own fresh K/V, under one softmax,
   attended before the caller scatters the span.  Its body (and row 11's,
-  over rows) is ``csrc/span_attention_tiled.cuh``: a planning pass groups
-  the span's tokens by row, then one block computes 64 query rows (64 / g
-  tokens of one row x g heads) of one kv head on the tensor cores.
+  over rows) is ``csrc/span_attention_tiled.cuh`` in its rolling mode.
 - ``csrc/paged_span_attention_rolling_quant.cu`` replaces
   ``repro/kernels/span_attention.py:761``
   (``paged_span_attention_rolling_quant``): the same over the int8
@@ -41,8 +41,9 @@ bodies over another address computation:
 - ``csrc/span_attention_rolling_quant.cu`` replaces :456
   (``span_attention_rolling_quant``).
 
-All eight are memory-bound: the least they must move is each row's K/V
-prefix (or window) once, plus q, the fresh span and the output.
+All eight are memory-bound at the engine's shapes: the least they must
+move is each row's K/V prefix (or window) once, plus q, the fresh span and
+the output.
 
 Plain versions: :func:`paged_span_attention_plain`, the reference
 oracle's gather-then-attend (``repro.models.attention.
@@ -76,7 +77,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel():
     return _build.load("paged_span_attention", "paged_span_attention",
-                       [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P])
+                       [_P] * 8 + [_I] * 8
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 @functools.cache
@@ -104,7 +106,9 @@ def paged_span_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``seq_idx[t]``.  q [T, H, hd]; caches [n_blocks, bs, Kv, hd];
     block_tables [B, nb] int32; positions/seq_idx [T] int32 ->
     [T, H*hd].  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (bf16 only)."""
+    the tiled kernel (bf16, g = H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32,
+    64, 128}; other shapes raise ValueError), a planning pass and the main
+    kernel, with no host synchronisation."""
     if window:
         raise NotImplementedError(
             "windowed span attention over a full cache is not ported; "
@@ -118,11 +122,14 @@ def paged_span_attention(q: torch.Tensor, k_cache: torch.Tensor,
     t, h, hd = q.shape
     n_blocks, bs, kv = k_cache.shape[:3]
     b, nb = block_tables.shape
+    _paged.check_tiled(q, kv, (q, k_cache, v_cache))
+    plan = torch.empty(_paged.plan_ints(t, b, h // kv), dtype=torch.int32,
+                       device=q.device)
     out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    block_tables.data_ptr(), positions.data_ptr(),
-                   seq_idx.data_ptr(), out.data_ptr(), t, h, kv, hd, bs, b,
-                   nb, n_blocks, _paged.TILE, hd ** -0.5,
+                   seq_idx.data_ptr(), plan.data_ptr(), out.data_ptr(), t, h,
+                   kv, hd, bs, b, nb, n_blocks, plan.numel(), hd ** -0.5,
                    _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"paged_span_attention launch failed: CUDA "
@@ -252,7 +259,7 @@ def paged_span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
     k_span/v_span [T, Kv, hd]; block_tables [B, nb] int32;
     positions/seq_idx/offsets [T] int32 -> [T, H*hd].  CPU tensors take
     the plain version; CUDA tensors launch the tiled kernel (bf16, g = H /
-    Kv in {1, 2, 4, 8}, hd in {16, 32, 64, 128}; other shapes raise
+    Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}; other shapes raise
     ValueError), a planning pass and the main kernel, with no host
     synchronisation."""
     _paged.check(q, k_cache, v_cache, block_tables,
@@ -349,7 +356,8 @@ paged_span_attention_rolling_quant.launches = 0
 @functools.cache
 def _rows_kernel():
     return _build.load("span_attention", "span_attention",
-                       [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P])
+                       [_P] * 7 + [_I] * 6
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 @functools.cache
@@ -400,15 +408,21 @@ def span_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Token t attends to slots ``0..positions[t]`` of cache row
     ``seq_idx[t]``.  q [T, H, hd]; caches [R, S, Kv, hd];
     positions/seq_idx [T] int32 -> [T, H*hd].  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bf16 only)."""
+    version; CUDA tensors launch the tiled kernel (the shapes of
+    :func:`paged_span_attention`; with the table's nb * bs == S it gives
+    the same bits)."""
     _paged.check(q, k_cache, v_cache, None,
                  {"positions": positions, "seq_idx": seq_idx})
     if q.device.type == "cpu":
         return span_attention_plain(q, k_cache, v_cache, positions, seq_idx)
+    t, h, hd = q.shape
     r, s, kv = k_cache.shape[:3]
+    _paged.check_tiled(q, kv, (q, k_cache, v_cache))
+    plan = torch.empty(_paged.plan_ints(t, r, h // kv), dtype=torch.int32,
+                       device=q.device)
     return _launch(span_attention, _rows_kernel(), q,
-                   (q, k_cache, v_cache, positions, seq_idx),
-                   (kv, q.shape[2], r, s, _paged.TILE))
+                   (q, k_cache, v_cache, positions, seq_idx, plan),
+                   (kv, hd, r, s, plan.numel()))
 
 
 span_attention.launches = 0

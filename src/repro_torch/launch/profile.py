@@ -20,9 +20,11 @@ at the shapes of ``chip_smoke.py``'s engine phase.  For the dense model:
 
 Then for mixtral-8x7b at its published widths, cut to the 16 of its 32
 layers that one card holds, as in ``chip_smoke.py``: the first stage's decode
-step (B = 4 rows, two of them past the W = 4096 window) and rolling chunk
-step (T = 256 over 4 rows, wrapped and not), and one MoE layer's FFN at
-T = 4 and T = 256 tokens.
+step (B = 4 rows, two of them past the W = 4096 window), rolling chunk
+step (T = 256 over 4 rows, wrapped and not) and monolithic prefill step
+(one prompt of 4500 tokens, longer than W: the windowed flash kernel's
+share of a prompt's prefill), and one MoE layer's FFN at T = 4 and T = 256
+tokens.
 
 Then for whisper-small at full width (12 + 12 layers, random weights),
 at the shapes of ``chip_smoke.py``'s whisper phase (B = 4 rows of 1500
@@ -133,6 +135,12 @@ def profile_mixtral(seed: int, reps: int, dev, results):
                                   span_seq, last_idx, tables,
                                   span_starts=i32(starts), n_valid=256),
            reps, results)
+    prompt = i32(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, (1, 4500)))
+    _piece(f"mixtral first stage monolithic prefill step (B=1, S=4500, "
+           f"{first.n_groups} layers)",
+           lambda: first.prefill_fn(first.params, prompt, 0, i32([4499])),
+           max(1, reps // 4), results)
     ffn = tree_map(lambda w: w[0], first.params["blocks"]["l0"]["ffn"])
     for t in (4, 256):
         x = torch.randn(t, cfg.d_model, device=dev).to(torch.bfloat16)
