@@ -23,9 +23,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    both p-quantization tiles: one page (the Pallas kernel's) and the
    engine's (the reference engine's kv_block = 512).  The tensor-core
    kernels (the bf16 decode kernels, rows 2, 2c, 2r, 2cr; the bf16 span
-   kernels, rows 1, 9, 6, 11; the flash kernel, rows 3, 3w, 3n; here and
-   in 3, 6 and 8) are timed on the device alone (``_device_ms``, beside
-   SDPA's device time and the back-to-back ``call_ms``).  The flash
+   kernels, rows 1, 9, 6, 11; the int8 span kernels, rows 7, 10, 8, 12;
+   the flash kernel, rows 3, 3w, 3n; here and in 3, 6 and 8) are timed on
+   the device alone (``_device_ms``, beside SDPA's device time where one
+   call computes the function, and the back-to-back ``call_ms``).  The flash
    kernel's extra held cases (``SEED + 12``): causal at S = 64 and 65 (one
    tile, one tile and a row), and glm4-9b's widths (H 32, Kv 2, hd 128: g
    16) at S 397.  The int8 decode kernels (here and in 3 and
@@ -39,7 +40,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    chunk over rows on both sides of W = 4096), the rolling modes of both
    decode kernels (contexts 100-9000) and flash attention's window band
    (S = 4500), then each again at W = 64, where every row has wrapped
-   many times (the span with bucket padding), checked and timed as in 2.
+   many times (the span with bucket padding), checked and timed as in 2;
+   the span kernels (bf16 and int8) also on a mixed step (1-token decode
+   rows beside chunks, bucket padding) and on that step with its rows
+   interleaved in seq_idx.
 4. engine — serves full-width stablelm-1.6b (random weights from SEED)
    through the port's SiPipeEngine (pp = 2, paged KV), each path with
    every launch counter set to 0 just before it and read just after:
@@ -67,10 +71,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    rows of S = 640 and at mixtral's over rolling rows of W = 4096 and
    64), the split decode body's extra cases (glm4-9b's widths, g 16;
    contexts of 1 slot and on either side of one and two 512-slot splits)
-   and the full-cache span body's (rows 1 and 9, ``SEED + 13``: the chunk
-   with its rows interleaved round robin in seq_idx; glm4-9b's widths, g
-   16), each over pages and over rows of one logical cache, where the two
-   kernels must give the same bits; then, right after the engine phase
+   and the full-cache span bodies' (rows 1 and 9, and rows 7 and 10 at
+   p-tiles 16 and 512, ``SEED + 13``: the chunk with its rows interleaved
+   round robin in seq_idx; glm4-9b's widths, g 16), each over pages and
+   over rows of one logical cache, where the two kernels must give the
+   same bits, as must rows 11 and 6 and rows 12 and 8 on the rolling
+   phase's main and mixed steps; then, right after the engine phase
    and with its weights and prompts, stablelm-1.6b over contiguous rows
    on its four paths, and, right after the mixtral phase, mixtral-8x7b
    over rolling rows of W slots, chunked and monolithic in bf16 and
@@ -602,16 +608,23 @@ def phase_kernels(dev, gen, card):
                     entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if kv != h:
                     continue
-                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = None
+                if decode:
+                    ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                else:                # row 7: device times (a tiled body)
+                    ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                    call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
                 if entry is not None:        # the one-page tile
                     entry["ms_page_tile"] = ms
-                    print(f"kernel {name}: ms={ms:.4f} at the one-page "
-                          f"p-tile on {card}", flush=True)
+                    print(f"kernel {name}: ms={ms:.4f} call_ms="
+                          f"{call_ms:.4f} at the one-page p-tile on {card}",
+                          flush=True)
                     continue
                 plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3,
                                     warmup=1)
                 entry = _entry(name, src, replaces, err, ms, plain_ms,
-                               _bound(case, h, hd, quant=True), None, card)
+                               _bound(case, h, hd, quant=True), None, card,
+                               call_ms)
         results.append((kernel, entry))
     _quant_decode_draws(
         "paged_decode_attention_quant", kda.paged_decode_attention_quant,
@@ -709,8 +722,8 @@ def _interleave(case):
 
 def _tiled_cases(spans, spans64):
     """(window, spans, pad, kind) of a rolling span kernel's held cases:
-    the main case first (timed), W = 64, then, for the tiled bf16 kernels
-    (rows 6 and 11), the mixed and interleaved steps."""
+    the main case first (timed), W = 64, then the mixed and interleaved
+    steps."""
     return [(4096, spans, 0, "main"), (64, spans64, 4, "wrapped"),
             (4096, MIXED_SPANS, MIXED_PAD, "mixed"),
             (4096, MIXED_SPANS, MIXED_PAD, "interleaved")]
@@ -824,8 +837,7 @@ def phase_rolling_kernels(dev, card):
              "src/repro_torch/csrc/paged_span_attention_rolling_quant.cu",
              "src/repro/kernels/span_attention.py:761")):
         entry = None
-        for window, sp, pad, kind in _tiled_cases(spans, spans64)[
-                :2 if quant else 4]:
+        for window, sp, pad, kind in _tiled_cases(spans, spans64):
             case = _rolling_case(gen if kind in ("main", "wrapped") else tgen,
                                  sp, window, h, kv, hd, bs, dev, pad)
             if kind == "interleaved":
@@ -849,10 +861,11 @@ def phase_rolling_kernels(dev, card):
                 continue
             plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
             bound = _rolling_bound(case, h, hd, quant)
-            if quant:
-                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            if quant:                # row 8: device times (a tiled body)
+                ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
                 entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
-                               None, card)
+                               None, card, call_ms)
                 continue
             sdpa = _rolling_sdpa_args(case, h, hd)
             ms, call_ms, lib_ms = _tiled_times(
@@ -1107,8 +1120,11 @@ def phase_contiguous_kernels(dev, card):
                 continue
             plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
             lib_ms = call_ms = None
-            if q8:
+            if q8 and decode:
                 ms = _kernel_ms(kernel, lambda: kernel(*args))
+            elif q8:                 # row 10: device times (a tiled body)
+                ms = _device_ms(kernel, lambda: kernel(*args))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args))
             else:
                 q4, k4, v4, m4 = _sdpa_args(case, h, hd, decode,
                                             views=_row_views(case))
@@ -1147,8 +1163,7 @@ def phase_contiguous_kernels(dev, card):
              "src/repro_torch/csrc/span_attention_rolling_quant.cu",
              "src/repro/kernels/span_attention.py:456")):
         entry = None
-        for window, sp, pad, kind in _tiled_cases(spans, spans64)[
-                :2 if q8 else 4]:
+        for window, sp, pad, kind in _tiled_cases(spans, spans64):
             case = _row_rolling_case(
                 gen if kind in ("main", "wrapped") else tgen, sp, window,
                 row_perm, h, kv, hd, dev, pad)
@@ -1169,10 +1184,11 @@ def phase_contiguous_kernels(dev, card):
                 continue
             plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
             bound = _rolling_bound(case, h, hd, q8)
-            if q8:
-                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            if q8:                   # row 12: device times (a tiled body)
+                ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
                 entry = _entry(name, src, replaces, err, ms, plain_ms, bound,
-                               None, card)
+                               None, card, call_ms)
                 continue
             sdpa = _rolling_sdpa_args(case, h, hd, views=_row_views(case))
             ms, call_ms, lib_ms = _tiled_times(
@@ -1324,20 +1340,24 @@ def _split_decode_cases(dev):
 
 def _full_span_cases(dev):
     """Rows 1 and 9 (the full-cache mode of ``csrc/span_attention_tiled.
-    cuh``) on extra held cases drawn from a generator of their own:
-    stablelm's chunk (H = Kv = 32, hd 64; 256 tokens over 4 rows) with its
-    rows interleaved round robin in seq_idx, and glm4-9b's widths (H 32,
-    Kv 2, hd 128: g 16, 4 tokens x 16 heads a query tile) over runs of 37,
-    64 and 29 tokens.  Each case is one logical cache, paged and as rows
-    (table width nb * bs = row width S): each kernel is held against its
-    plain version, and over rows the kernel must give the paged kernel's
-    bits (one fold order).  These launches do not count."""
+    cuh``) and rows 7 and 10 (that of ``csrc/span_attention_quant_tiled.
+    cuh``, at p-tiles of 16 and 512 slots) on extra held cases drawn from a
+    generator of their own: stablelm's chunk (H = Kv = 32, hd 64; 256
+    tokens over 4 rows) with its rows interleaved round robin in seq_idx,
+    and glm4-9b's widths (H 32, Kv 2, hd 128: g 16, 4 tokens x 16 heads a
+    query tile) over runs of 37, 64 and 29 tokens.  Each case is one
+    logical cache, paged and as rows (table width nb * bs = row width S):
+    each kernel is held against its plain version, and over rows the
+    kernel must give the paged kernel's bits (one fold order).  These
+    launches do not count."""
     import torch
     from repro_torch.kernels import span_attention as ksa
-    from repro_torch.models.attention import gather_paged_cache
+    from repro_torch.models.attention import (gather_paged_cache, kv_tile,
+                                              quantize_kv)
     gen = np.random.default_rng(SEED + 13)
     paged, rows = ksa.paged_span_attention, ksa.span_attention
-    launches = [w.launches for w in (paged, rows)]
+    qpaged, qrows = ksa.paged_span_attention_quant, ksa.span_attention_quant
+    launches = [w.launches for w in (paged, rows, qpaged, qrows)]
     for label, h, kv, hd, spans, interleave in (
             ("interleaved rows", 32, 32, 64,
              [(0, 96), (200, 64), (448, 64), (120, 32)], True),
@@ -1369,19 +1389,47 @@ def _full_span_cases(dev):
               flush=True)
         if not equal:
             raise AssertionError("rows 9 and 1 differ on one logical cache")
-    for w, n in zip((paged, rows), launches):
+        # rows 7 and 10 over the same cache, quantized as the engine
+        # stores it
+        (k8, ks), (v8, vs) = quantize_kv(case["k"]), quantize_kv(case["v"])
+        qviews = [gather_paged_cache(c, case["tables"]).contiguous()
+                  for c in (k8, ks, v8, vs)]
+        qpaged_args = [case["q"], k8, ks, v8, vs, case["tables"],
+                       case["positions"], case["rows"]]
+        qrow_args = [case["q"], *qviews, case["positions"], case["rows"]]
+        for kv_block in (16, 512):
+            kw = {"kv_block": kv_block}
+            tag = f"{text} p-tile={kv_tile(kv_block, views[0].shape[1])}"
+            _held(qpaged.__name__, qpaged, ksa.paged_span_attention_quant_plain,
+                  qpaged_args, tag, **kw)
+            _held(qrows.__name__, qrows, ksa.span_attention_quant_plain,
+                  qrow_args, tag, **kw)
+            over_pages = qpaged(*qpaged_args, **kw)
+            over_rows = qrows(*qrow_args, **kw)
+            torch.cuda.synchronize()
+            equal = torch.equal(over_pages, over_rows)
+            print(f"kernel span_attention_quant over rows == "
+                  f"paged_span_attention_quant over pages ({tag}): {equal}",
+                  flush=True)
+            if not equal:
+                raise AssertionError("rows 10 and 7 differ on one logical "
+                                     "cache")
+    for w, n in zip((paged, rows, qpaged, qrows), launches):
         w.launches = n
 
 
 def _rows_equal_pages(gen, h, kv, hd, spans, dev):
-    """Row 11 over rows must give row 6's bits over pages on one logical
-    cache whose table width nb * bs is the row width S = W (the two share
-    the tiled body and its tile order): the main and the mixed steps."""
+    """Rows 11 and 12 over rows must give rows 6's and 8's bits over pages
+    on one logical cache whose table width nb * bs is the row width S = W
+    (each pair shares a tiled body and its tile order): the main and the
+    mixed steps."""
     import torch
     from repro_torch.kernels import span_attention as ksa
-    from repro_torch.models.attention import gather_paged_cache
+    from repro_torch.models.attention import gather_paged_cache, quantize_kv
     window, bs = 4096, 16
-    wrappers = (ksa.paged_span_attention_rolling, ksa.span_attention_rolling)
+    wrappers = (ksa.paged_span_attention_rolling, ksa.span_attention_rolling,
+                ksa.paged_span_attention_rolling_quant,
+                ksa.span_attention_rolling_quant)
     launches = [w.launches for w in wrappers]
     for kind, sp, pad in (("main", spans, 0),
                           ("mixed", MIXED_SPANS, MIXED_PAD)):
@@ -1404,6 +1452,21 @@ def _rows_equal_pages(gen, h, kv, hd, spans, dev):
               f"= {window}): {equal}", flush=True)
         if not equal:
             raise AssertionError("rows 11 and 6 differ on one logical cache")
+        q8 = [*quantize_kv(case["k"]), *quantize_kv(case["v"])]
+        rows8 = [gather_paged_cache(c, case["tables"]).contiguous()
+                 for c in q8]
+        paged = ksa.paged_span_attention_rolling_quant(
+            case["q"], *q8, *span, case["tables"], *idx, window=window)
+        contiguous = ksa.span_attention_rolling_quant(case["q"], *rows8,
+                                                      *span, *idx,
+                                                      window=window)
+        torch.cuda.synchronize()
+        equal = torch.equal(paged, contiguous)
+        print(f"kernel span_attention_rolling_quant over rows == "
+              f"paged_span_attention_rolling_quant over pages ({kind}, S = "
+              f"nb * bs = {window}): {equal}", flush=True)
+        if not equal:
+            raise AssertionError("rows 12 and 8 differ on one logical cache")
     for w, n in zip(wrappers, launches):
         w.launches = n
 

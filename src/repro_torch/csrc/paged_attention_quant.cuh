@@ -1,18 +1,17 @@
-// Shared pieces of the port's int8 attention kernels, paged and
-// contiguous (paged_span_attention_quant.cu, span_attention_quant.cu,
-// paged_span_attention_rolling_quant.cu, span_attention_rolling_quant.cu,
-// decode_attention_quant.cu).
+// Shared pieces of the port's int8 decode kernels, paged and contiguous
+// (decode_attention_quant.cu), and the int8 quantization rule that the
+// tiled int8 span body (span_attention_quant_tiled.cuh) shares with them.
 //
 // The int8 KV cache holds each K/V vector as int8 [hd] with one bf16
 // scale; both attention contractions are exact int8 dots (__dp4a for
 // q . k, int32 multiply-adds for p . v) and the scales are folded in
 // outside them, as in the reference (repro/models/attention.py:544-650).
-// One thread block serves ONE query token (or decode row) and the g query
-// heads of ONE kv head, with 128 threads.  It reads its row's logical
-// slots 0..pos only: through the block table (PagedIndex; table entries
-// past the prefix, the trash block, are never read) or in one row of a
-// contiguous [R, S, Kv, hd] cache (RowIndex).  The two layouts differ only
-// in that address computation.
+// One thread block serves ONE decode row and the g query heads of ONE kv
+// head, with 128 threads.  It reads its row's logical slots 0..pos only:
+// through the block table (PagedIndex; table entries past the prefix, the
+// trash block, are never read) or in one row of a contiguous
+// [R, S, Kv, hd] cache (RowIndex).  The two layouts differ only in that
+// address computation.
 //
 // Quantization follows the reference's quantize_kv op for op: the scale
 // is max|x| / 127 + 1e-8 in fp32 (correctly rounded division, never a
@@ -31,8 +30,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "paged_attention.cuh"
 
 namespace pquant {
 
@@ -77,8 +74,8 @@ struct Smem {
 
 // Dynamic shared memory of one block: the int8 query heads first (16-byte
 // aligned for the K loads; g * hd is a multiple of 16), then tile_floats
-// floats of the caller's score buffer (span kernel; 0 for decode), then
-// the state above.
+// floats of a score buffer (0 for decode, which keeps its scores in device
+// memory), then the state above.
 __host__ __device__ inline size_t smem_bytes(int g, int hd, int tile_floats) {
   const int pairs = g * hd > kThreads ? g * hd : kThreads;
   return (size_t)g * hd + sizeof(float) * (size_t)(tile_floats + 5 * g + g * hd) +
@@ -141,21 +138,6 @@ struct RowIndex {
   int row, S, Kv, kh;
   __device__ __forceinline__ size_t operator()(int s) const {
     return ((size_t)row * S + s) * Kv + kh;
-  }
-};
-
-// Which slots of a span's tile score -1e30: none (full cache) ...
-struct NoMask {
-  __device__ __forceinline__ bool operator()(int) const { return false; }
-};
-
-// ... or, over a rolling cache whose row holds positions [0, off), those
-// whose stored position off-1-((off-1-s) mod w_slots) lies outside the
-// window of the token at `pos`.
-struct WindowMask {
-  int off, pos, window, w_slots;
-  __device__ __forceinline__ bool operator()(int s) const {
-    return off - 1 - (off - 1 - s) % w_slots <= pos - window;
   }
 };
 
@@ -233,138 +215,6 @@ __device__ inline void av(const signed char* __restrict__ v8,
     const float add = (float)o * s.ps[j];
     s.acc[pair] = rescale ? s.acc[pair] * s.c[j] + add : add;
   }
-}
-
-// The span kernels' walk over slots 0..n_slots-1 of one row in tiles of
-// `tile` slots, the p-quantization tile (part of the function): per tile,
-// scores into buf [g][tile] (exact __dp4a dots; slots `masked` score
-// -1e30, so their probabilities are exactly 0), the tile's max and the
-// running max/sum, p = expf(s - m), p * vs quantized per head, the exact
-// int8 AV dot, and acc = acc * corr + o32 * ps.  The query must be loaded
-// (load_query) and visible before the call.
-template <typename Index, typename Mask>
-__device__ inline void span_tiles(const signed char* __restrict__ k8,
-                                  const __nv_bfloat16* __restrict__ ks,
-                                  const signed char* __restrict__ v8,
-                                  const __nv_bfloat16* __restrict__ vs,
-                                  const Index& index, const Mask& masked,
-                                  int n_slots, int tile, int g, int hd,
-                                  float scale, const Smem& s, float* buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int start = 0; start < n_slots; start += tile) {
-    const int live = min(tile, n_slots - start);
-    score(k8, ks, index, start, live, g, hd, scale, s, buf, tile);
-    // masked slots (the same threads wrote their scores)
-    for (int i = threadIdx.x; i < live; i += kThreads)
-      if (masked(start + i))
-        for (int j = 0; j < g; ++j) buf[j * tile + i] = kNegInf;
-    __syncthreads();
-    for (int j = warp; j < g; j += kWarps) {
-      float* r = buf + j * tile;
-      float mx = kNegInf;
-      for (int i = lane; i < live; i += 32) mx = fmaxf(mx, r[i]);
-      const float m_old = s.m[j];
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f, amax = 0.f;
-      for (int i = lane; i < live; i += 32) {
-        const float p = expf(r[i] - m_new);
-        sum += p;
-        const float pv = p * __bfloat162float(vs[index(start + i)]);
-        r[i] = pv;
-        amax = fmaxf(amax, fabsf(pv));
-      }
-      sum = warp_sum(sum);
-      amax = warp_max(amax);
-      __syncwarp();
-      quantize_row(r, live, amax, s.ps + j);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        s.c[j] = corr;
-        s.l[j] = s.l[j] * corr + sum;
-        s.m[j] = m_new;
-      }
-    }
-    __syncthreads();
-    av(v8, index, start, live, g, hd, buf, tile, s, true);
-    __syncthreads();
-  }
-}
-
-// Dynamic shared memory of the full-cache span kernel.
-__host__ __device__ inline size_t span_smem_bytes(int g, int hd, int tile) {
-  return smem_bytes(g, hd, g * tile);
-}
-
-// One token of the full-cache span kernels (q, out: its [H*hd] rows) over
-// slots 0..n_slots-1 of its row, for the g query heads of kv head kh.
-template <typename Index>
-__device__ inline void span(const __nv_bfloat16* __restrict__ q,
-                            const signed char* __restrict__ k8,
-                            const __nv_bfloat16* __restrict__ ks,
-                            const signed char* __restrict__ v8,
-                            const __nv_bfloat16* __restrict__ vs,
-                            const Index& index, int n_slots, int kh, int g,
-                            int hd, int tile, float scale,
-                            __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char quant_smem[];
-  float* buf;
-  const Smem s = carve(quant_smem, g, hd, g * tile, &buf);
-  load_query(q + kh * g * hd, g, hd, s);
-  __syncthreads();
-  span_tiles(k8, ks, v8, vs, index, NoMask{}, n_slots, tile, g, hd, scale, s,
-             buf);
-  __nv_bfloat16* o = out + kh * g * hd;
-  for (int i = threadIdx.x; i < g * hd; i += kThreads)
-    o[i] = __float2bfloat16(s.acc[i] / fmaxf(s.l[i / hd], 1e-30f));
-}
-
-constexpr int kFreshTile = 64;  // fresh span entries staged per step
-
-// Dynamic shared memory of the rolling span kernels: the int8 state, then
-// (16-byte aligned) the fp32 state of the fresh-span fold.
-__host__ __device__ inline size_t rolling_quant_bytes(int g, int hd,
-                                                      int tile) {
-  return (smem_bytes(g, hd, g * tile) + 15) / 16 * 16;
-}
-__host__ __device__ inline size_t rolling_smem_bytes(int g, int hd,
-                                                     int tile) {
-  return rolling_quant_bytes(g, hd, tile) +
-         sizeof(float) * paged::smem_floats(g, hd, kFreshTile);
-}
-
-// One token of the rolling span kernels: its row's old int8 rolling cache
-// (slots 0..n_old-1 through `index`, windowed by `window_mask`) with the
-// int8 math of span_tiles, then the span's own fresh bf16 K/V with
-// full-precision dots (paged::fold over paged::FreshSpan), under one
-// running softmax.
-template <typename Index>
-__device__ inline void rolling_span(
-    const __nv_bfloat16* __restrict__ q, const signed char* __restrict__ k8,
-    const __nv_bfloat16* __restrict__ ks, const signed char* __restrict__ v8,
-    const __nv_bfloat16* __restrict__ vs, const Index& index, int n_old,
-    const WindowMask& window_mask, const paged::FreshSpan& fresh,
-    int n_fresh, int kh, int g, int hd, int tile, float scale,
-    __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char quant_smem[];
-  float* buf;
-  const Smem s = carve(quant_smem, g, hd, g * tile, &buf);
-  const __nv_bfloat16* qt = q + kh * g * hd;
-  load_query(qt, g, hd, s);
-  __syncthreads();
-  span_tiles(k8, ks, v8, vs, index, window_mask, n_old, tile, g, hd, scale, s,
-             buf);
-  // the fresh span: fp32 query heads and K/V tiles beside the int8 state,
-  // folded into the same running max, sum and accumulator
-  float* f = (float*)(quant_smem + rolling_quant_bytes(g, hd, tile));
-  paged::State fs = paged::carve(f, g, hd, kFreshTile);
-  fs.acc = s.acc;
-  fs.m = s.m;
-  fs.l = s.l;
-  fs.c = s.c;
-  for (int i = threadIdx.x; i < g * hd; i += kThreads)
-    fs.q[i] = __bfloat162float(qt[i]);
-  paged::fold(fresh, n_fresh, g, hd, kFreshTile, scale, fs);
-  paged::finish(out + kh * g * hd, g, hd, fs);
 }
 
 template <typename Kernel>

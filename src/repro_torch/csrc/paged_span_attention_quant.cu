@@ -2,61 +2,102 @@
 // prefill step (chunk_fn) of a kv_quant model.
 //
 // Replaces the TPU kernel repro/kernels/span_attention.py:656
-// (paged_span_attention_quant, body _quant_kernel :183).  Token t of the
-// packed span attends, for each query head, to logical slots
-// 0..positions[t] of block-table row seq_idx[t].  Grid: one block per
-// (token, kv head); the block reads its row and position itself (the TPU
-// kernel got them by scalar prefetch).
+// (paged_span_attention_quant, body _quant_kernel :183).  The engine
+// writes the chunk's K/V into the cache first; token t of the packed span
+// then attends, for each query head, to logical slots 0..positions[t] (at
+// most nb * bs of them) of block-table row seq_idx[t], with exact int8
+// dots against q quantized per head and the probabilities times the V
+// scales quantized per p-tile of `tile` slots from slot 0.  The tile is
+// part of the function: the Pallas kernel used one page (bs); the
+// reference engine off the TPU uses kv_block = 512 clipped and halved
+// until it divides the table's nb * bs slots (attention.py:829); the
+// caller chooses.  Table entries past a row's longest prefix (the trash
+// block) are never read.
 //
-// The slots are walked in tiles of `tile` slots, the p-quantization tile:
-// the probabilities of one tile are quantized with one scale per head, so
-// the tile width is part of the function.  The Pallas kernel used one
-// page (bs); the reference engine off the TPU uses kv_block = 512 clipped
-// and halved until it divides the table's nb * bs slots
-// (attention.py:829); the caller chooses.  Tiles past positions[t] are
-// skipped: all their probabilities are exactly 0, so they would add
-// nothing.  The tile loop (pquant::span_tiles), numerics and bound:
-// paged_attention_quant.cuh.
-#include "paged_attention_quant.cuh"
+// Body, grid, numerics, bound and design: span_attention_quant_tiled.cuh
+// in its full-cache mode (a planning pass groups the span's tokens by row,
+// then one block computes 64 query rows, 64 / g tokens of one table row x
+// g heads, of one kv head on the int8 tensor cores).  span_attention_
+// quant.cu is the same body over contiguous rows: with nb * bs == S the
+// two give identical bits.
+#include "span_attention_quant_tiled.cuh"
 
-__global__ void __launch_bounds__(pquant::kThreads)
+template <int HD>
+__global__ void __launch_bounds__(tiled::q8::block_threads<HD>(),
+                                  tiled::q8::block_min<HD>())
 paged_span_attention_quant_kernel(
-    const __nv_bfloat16* __restrict__ q, const signed char* __restrict__ k8,
-    const __nv_bfloat16* __restrict__ ks, const signed char* __restrict__ v8,
-    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ tables,
-    const int* __restrict__ positions, const int* __restrict__ seq_idx,
-    __nv_bfloat16* __restrict__ out, int H, int Kv, int hd, int bs, int B,
-    int nb, int n_blocks, int tile, float scale) {
-  const int t = blockIdx.x, kh = blockIdx.y;
-  const int row = seq_idx[t], pos = positions[t];
-  assert(row >= 0 && row < B && pos >= 0);  // a corrupt batch fails loudly
-  const int* table = tables + (size_t)row * nb;
-  const int n_slots = min(pos + 1, nb * bs);
-  pquant::check_table(table, n_slots, bs, n_blocks);
-  pquant::span(q + (size_t)t * H * hd, k8, ks, v8, vs,
-               pquant::PagedIndex{table, bs, Kv, kh}, n_slots, kh, H / Kv, hd,
-               tile, scale, out + (size_t)t * H * hd);
+    const tiled::bf16* __restrict__ q, const signed char* __restrict__ k8,
+    const tiled::bf16* __restrict__ ks, const signed char* __restrict__ v8,
+    const tiled::bf16* __restrict__ vs, const int* __restrict__ tables,
+    const int* __restrict__ positions, const int* __restrict__ plan,
+    tiled::bf16* __restrict__ out, int T, int H, int Kv, int lg,
+    tiled::FastDiv bs, int B, int nb, int n_blocks, int tile, float scale) {
+  extern __shared__ __align__(16) unsigned char quant_smem[];
+  const int tq = tiled::kRows >> lg;
+  const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, B, tq);
+  if ((int)blockIdx.x >= *p.n_tiles) return;
+  const int row = p.tiles[3 * blockIdx.x];
+  const int w_slots = nb * bs.d;
+  int* stab = reinterpret_cast<int*>(
+      quant_smem +
+      tiled::q8::QLayout<HD, true>::bytes(w_slots, tile, T, 0));
+  tiled::PagedRowOf<signed char> src{k8, v8, tables + (size_t)row * nb, bs,
+                                     Kv, (int)blockIdx.y, n_blocks, stab};
+  tiled::q8::attend<HD, true>(src, ks, vs, q, nullptr, nullptr, positions,
+                              nullptr, plan, out, T, H, Kv, lg, B, w_slots,
+                              tile, 0, T, scale, quant_smem);
 }
 
-// q [T, H, hd] bf16; k8/v8 [n_blocks, bs, Kv, hd] int8; ks/vs
-// [n_blocks, bs, Kv] bf16; tables [B, nb], positions/seq_idx [T] int32;
-// out [T, H*hd] bf16.  hd must be a multiple of 16.
+template <int HD>
+static int launch(const void* q, const void* k8, const void* ks,
+                  const void* v8, const void* vs, const void* tables,
+                  const void* positions, void* plan, void* out, int T, int H,
+                  int Kv, int lg, int bs, int B, int nb, int n_blocks,
+                  int tile, float scale, cudaStream_t stream) {
+  const size_t smem =
+      tiled::q8::QLayout<HD, true>::bytes(nb * bs, tile, T, nb);
+  auto kernel = paged_span_attention_quant_kernel<HD>;
+  cudaError_t err = tiled::prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiled::max_tiles(T, B, tiled::kRows >> lg), Kv);
+  kernel<<<grid, tiled::q8::block_threads<HD>(), smem, stream>>>(
+      (const tiled::bf16*)q, (const signed char*)k8, (const tiled::bf16*)ks,
+      (const signed char*)v8, (const tiled::bf16*)vs, (const int*)tables,
+      (const int*)positions, (const int*)plan, (tiled::bf16*)out, T, H, Kv,
+      lg, tiled::FastDiv(bs), B, nb, n_blocks, tile, scale);
+  return (int)cudaGetLastError();
+}
+
+// q [T, H, hd] bf16; k8/v8 [n_blocks, bs, Kv, hd] int8 and ks/vs
+// [n_blocks, bs, Kv] bf16 (the span already written); tables [B, nb],
+// positions/seq_idx [T] int32; plan: int32 workspace of plan_ints entries
+// (tiled::plan_ints(T, B, 64 / g)); out [T, H*hd] bf16.  H / Kv in {1, 2,
+// 4, 8, 16}, hd in {16, 32, 64, 128}, tile >= 1.
 extern "C" int paged_span_attention_quant(
     const void* q, const void* k8, const void* ks, const void* v8,
     const void* vs, const void* tables, const void* positions,
-    const void* seq_idx, void* out, int T, int H, int Kv, int hd, int bs,
-    int B, int nb, int n_blocks, int tile, float scale, void* stream) {
+    const void* seq_idx, void* plan, void* out, int T, int H, int Kv, int hd,
+    int bs, int B, int nb, int n_blocks, int tile, long long plan_ints,
+    float scale, void* stream) {
   if (T == 0) return 0;
-  if (hd % 16 || tile < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = pquant::span_smem_bytes(H / Kv, hd, tile);
-  cudaError_t err = pquant::prepare_smem(paged_span_attention_quant_kernel, smem);
+  const int lg = tiled::log2_group(H, Kv);
+  if (lg < 0 || B < 1 || nb < 1 || bs < 1 || tile < 1 ||
+      plan_ints < tiled::plan_ints(T, B, tiled::kRows >> lg))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
+      (const int*)seq_idx, T, B, tiled::kRows >> lg, (int*)plan);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_span_attention_quant_kernel<<<dim3(T, Kv), pquant::kThreads, smem,
-                                      (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const signed char*)k8,
-      (const __nv_bfloat16*)ks, (const signed char*)v8,
-      (const __nv_bfloat16*)vs, (const int*)tables, (const int*)positions,
-      (const int*)seq_idx, (__nv_bfloat16*)out, H, Kv, hd, bs, B, nb,
-      n_blocks, tile, scale);
-  return (int)cudaGetLastError();
+#define QUANT_LAUNCH(HD)                                                   \
+  return launch<HD>(q, k8, ks, v8, vs, tables, positions, plan, out, T, H, \
+                    Kv, lg, bs, B, nb, n_blocks, tile, scale, s)
+  switch (hd) {
+    case 16: QUANT_LAUNCH(16);
+    case 32: QUANT_LAUNCH(32);
+    case 64: QUANT_LAUNCH(64);
+    case 128: QUANT_LAUNCH(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef QUANT_LAUNCH
 }

@@ -83,7 +83,9 @@
 // bit for bit.  Instantiated for hd in {16, 32, 64, 128}; g in {1, 2, 4,
 // 8, 16} is a runtime shift (at g 16 a tile is 4 tokens x 16 heads).  The
 // copy and tensor-core primitives and the tile step are in
-// tiled_primitives.cuh, shared with the flash and split decode bodies.
+// tiled_primitives.cuh, shared with the flash and split decode bodies; the
+// plan, the row addressing and the fresh-span staging serve the int8 span
+// body too (span_attention_quant_tiled.cuh, PERF.md rows 7, 8, 10, 12).
 #pragma once
 
 #include <cassert>
@@ -198,11 +200,15 @@ plan_kernel(const int* __restrict__ seq_idx, int T, int rows, int tq,
 // Slot addresses of one cache row, for one kv head
 // ---------------------------------------------------------------------------
 
-// Slots of one block-table row of a [n_blocks, bs, Kv, hd] cache; the
-// row's table entries are copied to shared memory (stab) by prepare().
-struct PagedRow {
-  const bf16* k;
-  const bf16* v;
+// Slots of one block-table row of a [n_blocks, bs, Kv, hd] cache of T
+// (bf16; int8 in span_attention_quant_tiled.cuh); the row's table entries
+// are copied to shared memory (stab) by prepare().  vec(s): the index of
+// slot s's kv-head-kh vector (an int8 cache's scale sits at that index of
+// its [n_blocks, bs, Kv] scale cache); offset: its first element.
+template <class T>
+struct PagedRowOf {
+  const T* k;
+  const T* v;
   const int* table;  // this row's [nb] entries
   FastDiv bs;
   int Kv, kh, n_blocks;
@@ -216,24 +222,33 @@ struct PagedRow {
       stab[i] = b;
     }
   }
+  __device__ size_t vec(int s) const {
+    const int i = bs.div(s);
+    return ((size_t)stab[i] * bs.d + (s - i * bs.d)) * Kv + kh;
+  }
   template <int HD>
   __device__ size_t offset(int s) const {
-    const int i = bs.div(s);
-    return (((size_t)stab[i] * bs.d + (s - i * bs.d)) * Kv + kh) * HD;
+    return vec(s) * HD;
   }
 };
+using PagedRow = PagedRowOf<bf16>;
 
-// Slots of row `row` of a contiguous [R, S, Kv, hd] cache.
-struct ContiguousRow {
-  const bf16* k;
-  const bf16* v;
+// Slots of row `row` of a contiguous [R, S, Kv, hd] cache of T.
+template <class T>
+struct ContiguousRowOf {
+  const T* k;
+  const T* v;
   int row, S, Kv, kh;
   __device__ void prepare(int) const {}
+  __device__ size_t vec(int s) const {
+    return ((size_t)row * S + s) * Kv + kh;
+  }
   template <int HD>
   __device__ size_t offset(int s) const {
-    return (((size_t)row * S + s) * Kv + kh) * HD;
+    return vec(s) * HD;
   }
 };
+using ContiguousRow = ContiguousRowOf<bf16>;
 
 // Does the arc of `len` slots from slot a (mod w) meet slots [s0, s1)?
 __device__ __forceinline__ bool arc_hits(int a, int len, int w, int s0,
@@ -278,6 +293,31 @@ struct Layout {
   }
 };
 
+// Stages fresh entries e0 .. e0 + kSlots - 1 of a row (the span indices
+// order[0 .. nfresh)) into one ring entry (dk, dv: [kSlots][LD] bf16; up:
+// their positions).  Entries past nfresh or n_valid are zero-filled
+// without a read.
+template <int HD>
+__device__ __forceinline__ void stage_fresh(
+    const bf16* __restrict__ k_span, const bf16* __restrict__ v_span,
+    const int* __restrict__ positions, const int* __restrict__ order, int e0,
+    int nfresh, int n_valid, int Kv, int kh, bf16* dk, bf16* dv, int* up) {
+  constexpr int LD = Layout<HD>::LD, CPS = HD / 8;
+  static_assert(kSlots * CPS % kThreads == 0, "whole copy rounds");
+#pragma unroll
+  for (int i = 0; i < kSlots * CPS / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int j = c / CPS, ch = c - j * CPS;
+    const int e = e0 + j;
+    const int u = e < nfresh ? order[e] : -1;
+    const bool ok = u >= 0 && u < n_valid;
+    const size_t o = ok ? ((size_t)u * Kv + kh) * HD + ch * 8 : 0;
+    cp_async16(dk + j * LD + ch * 8, k_span + o, ok);
+    cp_async16(dv + j * LD + ch * 8, v_span + o, ok);
+    if (ch == 0) up[j] = ok ? positions[u] : INT_MAX;
+  }
+}
+
 // Stages candidate tile `item` of a block into one ring entry (dk, dv:
 // [kSlots][LD] bf16; up: the fresh entries' positions): old-cache tiles
 // (item < n_old_t) from src, fresh tiles from the row's span entries
@@ -304,19 +344,9 @@ __device__ __forceinline__ void stage(
       cp_async16(dv + j * LD + ch * 8, src.v + o, ok);
     }
   } else {
-    const int e0 = (item - n_old_t) * kSlots;
-#pragma unroll
-    for (int i = 0; i < kSlots * CPS / kThreads; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      const int j = c / CPS, ch = c - j * CPS;
-      const int e = e0 + j;
-      const int u = e < nfresh ? order[e] : -1;
-      const bool ok = u >= 0 && u < n_valid;
-      const size_t o = ok ? ((size_t)u * Kv + kh) * HD + ch * 8 : 0;
-      cp_async16(dk + j * LD + ch * 8, k_span + o, ok);
-      cp_async16(dv + j * LD + ch * 8, v_span + o, ok);
-      if (ch == 0) up[j] = ok ? positions[u] : INT_MAX;
-    }
+    stage_fresh<HD>(k_span, v_span, positions, order,
+                    (item - n_old_t) * kSlots, nfresh, n_valid, Kv, kh, dk,
+                    dv, up);
   }
 }
 

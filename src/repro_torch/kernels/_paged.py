@@ -1,9 +1,9 @@
 """Input checks, launch geometry and the limit against their plain
 versions shared by the attention kernels (``span_attention``,
 ``decode_attention``), paged and contiguous; see
-``csrc/paged_attention.cuh``, ``csrc/paged_attention_quant.cuh``,
-``csrc/span_attention_tiled.cuh`` and ``csrc/decode_attention_split.cuh``
-for the kernels' bodies.
+``csrc/paged_attention_quant.cuh``, ``csrc/span_attention_tiled.cuh``,
+``csrc/span_attention_quant_tiled.cuh`` and
+``csrc/decode_attention_split.cuh`` for the kernels' bodies.
 
 Two cache layouts: paged, [n_blocks, bs, Kv, hd] leaves read through
 [B, nb] int32 block tables; and contiguous rows, [R, S, Kv, hd] leaves
@@ -98,8 +98,9 @@ def quant_flip_term(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
 
 
 # The tiled bodies (csrc/span_attention_tiled.cuh: the bf16 span kernels,
-# full-cache and rolling; csrc/flash_attention.cu): blocks of QUERY_ROWS
-# query rows, 64 / g tokens (or positions) x g heads of one kv head
+# full-cache and rolling; csrc/span_attention_quant_tiled.cuh: the int8
+# ones; csrc/flash_attention.cu): blocks of QUERY_ROWS query rows, 64 / g
+# tokens (or positions) x g heads of one kv head
 QUERY_ROWS = 64
 TILED_GROUPS = (1, 2, 4, 8, 16)     # g = H / Kv
 TILED_WIDTHS = (16, 32, 64, 128)    # hd

@@ -28,7 +28,7 @@ from the full-cache ones.
 Both also have a contiguous mode (the contiguous KV layout: caches
 [R, S, Kv, hd], decode row b reading cache row ``rows[b]``), the Pallas
 ``decode_attention``'s own layout with lengths = positions + 1, over
-the same bodies (``csrc/paged_attention.cuh``'s ``RowSlots``, the int8
+the same bodies (the split body's ``ContiguousChunk``, the int8
 kernel's ``RowIndex``): :func:`contiguous_decode_attention`,
 :func:`contiguous_decode_attention_rolling`,
 :func:`contiguous_decode_attention_quant` and

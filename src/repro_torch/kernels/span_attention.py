@@ -12,7 +12,9 @@ CUDA kernels, paged:
 - ``csrc/paged_span_attention_quant.cu`` replaces
   ``repro/kernels/span_attention.py:656`` (``paged_span_attention_quant``)
   for ``kv_quant`` models: exact int8 dots, q and the probabilities
-  quantized on the fly (``csrc/paged_attention_quant.cuh``).
+  quantized on the fly.  Its body (and rows 8, 10 and 12's) is
+  ``csrc/span_attention_quant_tiled.cuh``: the bf16 body's plan and query
+  tiles with both dots on the int8 tensor cores, in its full-cache mode.
 
 - ``csrc/paged_span_attention_rolling.cu`` replaces
   ``repro/kernels/span_attention.py:703``
@@ -25,7 +27,8 @@ CUDA kernels, paged:
   ``repro/kernels/span_attention.py:761``
   (``paged_span_attention_rolling_quant``): the same over the int8
   rolling cache, with the int8 kernel's math on the old cache and
-  full-precision dots on the fresh span.
+  full-precision dots on the fresh span (the int8 body in its rolling
+  mode).
 
 CUDA kernels over contiguous rows (the contiguous KV layout: caches
 [R, S, Kv, hd], ``seq_idx`` the cache row of each token), the same
@@ -43,7 +46,9 @@ bodies over another address computation:
 
 All eight are memory-bound at the engine's shapes: the least they must
 move is each row's K/V prefix (or window) once, plus q, the fresh span and
-the output.
+the output.  The bf16 four share ``csrc/span_attention_tiled.cuh``, the
+int8 four ``csrc/span_attention_quant_tiled.cuh`` (over the same plan and
+query tiles).
 
 Plain versions: :func:`paged_span_attention_plain`, the reference
 oracle's gather-then-attend (``repro.models.attention.
@@ -85,7 +90,8 @@ def _kernel():
 def _quant_kernel():
     return _build.load("paged_span_attention_quant",
                        "paged_span_attention_quant",
-                       [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
+                       [_P] * 10 + [_I] * 9
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 def paged_span_attention_plain(q, k_cache, v_cache, block_tables, positions,
@@ -163,7 +169,9 @@ def paged_span_attention_quant(q: torch.Tensor, k8: torch.Tensor,
     clipped and halved until it divides the table's ``nb * bs`` slots (the
     reference engine's rule; ``kv_block = bs`` gives the Pallas kernel's
     one-page tiles).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16 q, hd a multiple of 16)."""
+    launch the tiled int8 kernel (the shapes of
+    :func:`paged_span_attention`; other shapes raise ValueError), a
+    planning pass and the main kernel, with no host synchronisation."""
     _paged.check_quant(q, k8, ks, v8, vs, block_tables,
                        {"positions": positions, "seq_idx": seq_idx})
     if q.device.type == "cpu":
@@ -174,12 +182,16 @@ def paged_span_attention_quant(q: torch.Tensor, k8: torch.Tensor,
     n_blocks, bs, kv = k8.shape[:3]
     b, nb = block_tables.shape
     tile = kv_tile(kv_block, nb * bs)
+    _paged.check_tiled(q, kv, (q, k8, v8))
+    plan = torch.empty(_paged.plan_ints(t, b, h // kv), dtype=torch.int32,
+                       device=q.device)
     out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
     rc = _quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
                          v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
                          positions.data_ptr(), seq_idx.data_ptr(),
-                         out.data_ptr(), t, h, kv, hd, bs, b, nb, n_blocks,
-                         tile, hd ** -0.5, _paged.stream_ptr(q))
+                         plan.data_ptr(), out.data_ptr(), t, h, kv, hd, bs, b,
+                         nb, n_blocks, tile, plan.numel(), hd ** -0.5,
+                         _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"paged_span_attention_quant launch failed: CUDA "
                            f"error {rc}")
@@ -202,7 +214,8 @@ def _rolling_kernel():
 def _rolling_quant_kernel():
     return _build.load("paged_span_attention_rolling_quant",
                        "paged_span_attention_rolling_quant",
-                       [_P] * 12 + [_I] * 11 + [ctypes.c_float, _P])
+                       [_P] * 13 + [_I] * 11
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 def _check_rolling(q, k_span, v_span, offsets, n_valid, window):
@@ -319,7 +332,9 @@ def paged_span_attention_rolling_quant(
     probabilities are quantized per tile of ``kv_block`` slots, clipped
     and halved until it divides the table's ``nb * bs`` slots (the
     reference engine's rule).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 q, hd a multiple of 16)."""
+    tensors launch the tiled int8 kernel (the shapes of
+    :func:`paged_span_attention_rolling`; other shapes raise ValueError),
+    a planning pass and the main kernel, with no host synchronisation."""
     _paged.check_quant(q, k8, ks, v8, vs, block_tables,
                        {"positions": positions, "seq_idx": seq_idx})
     _check_rolling(q, k_span, v_span, offsets, n_valid, window)
@@ -331,14 +346,17 @@ def paged_span_attention_rolling_quant(
     n_blocks, bs, kv = k8.shape[:3]
     b, nb = block_tables.shape
     tile = kv_tile(kv_block, nb * bs)
+    _paged.check_tiled(q, kv, (q, k8, v8, k_span, v_span))
+    plan = torch.empty(_paged.plan_ints(t, b, h // kv), dtype=torch.int32,
+                       device=q.device)
     out = torch.empty((t, h * hd), dtype=q.dtype, device=q.device)
     rc = _rolling_quant_kernel()(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), k_span.data_ptr(), v_span.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), seq_idx.data_ptr(),
-        offsets.data_ptr(), out.data_ptr(), t, h, kv, hd, bs, b, nb,
-        n_blocks, tile, window, int(n_valid), hd ** -0.5,
-        _paged.stream_ptr(q))
+        offsets.data_ptr(), plan.data_ptr(), out.data_ptr(), t, h, kv, hd,
+        bs, b, nb, n_blocks, tile, window, int(n_valid), plan.numel(),
+        hd ** -0.5, _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"paged_span_attention_rolling_quant launch "
                            f"failed: CUDA error {rc}")
@@ -363,7 +381,8 @@ def _rows_kernel():
 @functools.cache
 def _rows_quant_kernel():
     return _build.load("span_attention_quant", "span_attention_quant",
-                       [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P])
+                       [_P] * 9 + [_I] * 7
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 @functools.cache
@@ -377,7 +396,8 @@ def _rows_rolling_kernel():
 def _rows_rolling_quant_kernel():
     return _build.load("span_attention_rolling_quant",
                        "span_attention_rolling_quant",
-                       [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P])
+                       [_P] * 12 + [_I] * 9
+                       + [ctypes.c_longlong, ctypes.c_float, _P])
 
 
 def _launch(wrapper, kernel, q, ptrs, ints):
@@ -444,16 +464,23 @@ def span_attention_quant(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     with bf16 scales ks/vs [R, S, Kv]).  The probabilities are quantized
     per tile of ``kv_block`` slots halved until it divides S (the Pallas
     kernel's ``_pick_block``).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 q, hd a multiple of 16)."""
+    tensors launch the tiled int8 kernel (the shapes of
+    :func:`paged_span_attention_quant`; with the table's nb * bs == S it
+    gives the same bits)."""
     _paged.check_quant(q, k8, ks, v8, vs, None,
                        {"positions": positions, "seq_idx": seq_idx})
     if q.device.type == "cpu":
         return span_attention_quant_plain(q, k8, ks, v8, vs, positions,
                                           seq_idx, kv_block=kv_block)
+    t, h, hd = q.shape
     r, s, kv = k8.shape[:3]
+    tile = kv_tile(kv_block, s)
+    _paged.check_tiled(q, kv, (q, k8, v8))
+    plan = torch.empty(_paged.plan_ints(t, r, h // kv), dtype=torch.int32,
+                       device=q.device)
     return _launch(span_attention_quant, _rows_quant_kernel(), q,
-                   (q, k8, ks, v8, vs, positions, seq_idx),
-                   (kv, q.shape[2], r, s, kv_tile(kv_block, s)))
+                   (q, k8, ks, v8, vs, positions, seq_idx, plan),
+                   (kv, hd, r, s, tile, plan.numel()))
 
 
 span_attention_quant.launches = 0
@@ -533,8 +560,9 @@ def span_attention_rolling_quant(
     [R, S, Kv, hd] with bf16 scales ks/vs [R, S, Kv]); the fresh span K/V
     stays bf16.  The old rows' probabilities are quantized per tile of
     ``kv_block`` slots halved until it divides S.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (bf16 q, hd a multiple
-    of 16)."""
+    plain version; CUDA tensors launch the tiled int8 kernel (the shapes
+    of :func:`paged_span_attention_rolling_quant`; with the table's nb *
+    bs == S it gives the same bits)."""
     _paged.check_quant(q, k8, ks, v8, vs, None,
                        {"positions": positions, "seq_idx": seq_idx})
     _check_rolling(q, k_span, v_span, offsets, n_valid, window)
@@ -542,12 +570,16 @@ def span_attention_rolling_quant(
         return span_attention_rolling_quant_plain(
             q, k8, ks, v8, vs, k_span, v_span, positions, seq_idx, offsets,
             n_valid, window=window, kv_block=kv_block)
+    t, h, hd = q.shape
     r, s, kv = k8.shape[:3]
+    tile = kv_tile(kv_block, s)
+    _paged.check_tiled(q, kv, (q, k8, v8, k_span, v_span))
+    plan = torch.empty(_paged.plan_ints(t, r, h // kv), dtype=torch.int32,
+                       device=q.device)
     return _launch(span_attention_rolling_quant, _rows_rolling_quant_kernel(),
                    q, (q, k8, ks, v8, vs, k_span, v_span, positions, seq_idx,
-                       offsets),
-                   (kv, q.shape[2], r, s, kv_tile(kv_block, s), window,
-                    int(n_valid)))
+                       offsets, plan),
+                   (kv, hd, r, s, tile, window, int(n_valid), plan.numel()))
 
 
 span_attention_rolling_quant.launches = 0
