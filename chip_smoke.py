@@ -22,9 +22,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    never calls) beside the kernel's bound.  The int8 span kernel runs at
    both p-quantization tiles: one page (the Pallas kernel's) and the
    engine's (the reference engine's kv_block = 512).  The tensor-core
-   kernels (the bf16 decode kernels, rows 2, 2c, 2r, 2cr; the bf16 span
-   kernels, rows 1, 9, 6, 11; the int8 span kernels, rows 7, 10, 8, 12;
-   the flash kernel, rows 3, 3w, 3n; here and in 3, 6 and 8) are timed on
+   kernels (the bf16 decode kernels, rows 2, 2c, 2r, 2cr; the int8 decode
+   kernels, rows 2b, 2bc, 2br, 2bcr; the bf16 span kernels, rows 1, 9, 6,
+   11; the int8 span kernels, rows 7, 10, 8, 12; the flash kernel, rows 3,
+   3w, 3n; here and in 3, 6 and 8) are timed on
    the device alone (``_device_ms``, beside SDPA's device time where one
    call computes the function, and the back-to-back ``call_ms``).  The flash
    kernel's extra held cases (``SEED + 12``): causal at S = 64 and 65 (one
@@ -69,8 +70,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    and timed as in 2 and 3 (rows 9-12 of PERF.md's kernel table and the
    contiguous modes of both decode kernels, at stablelm's shapes over
    rows of S = 640 and at mixtral's over rolling rows of W = 4096 and
-   64), the split decode body's extra cases (glm4-9b's widths, g 16;
-   contexts of 1 slot and on either side of one and two 512-slot splits)
+   64), the split decode bodies' extra cases, bf16 and int8 (``SEED +
+   11``, ``SEED + 14``: glm4-9b's widths, g 16; contexts of 1 slot and on
+   either side of one and two 512-slot splits, rows == pages bit for bit)
    and the full-cache span bodies' (rows 1 and 9, and rows 7 and 10 at
    p-tiles 16 and 512, ``SEED + 13``: the chunk with its rows interleaved
    round robin in seq_idx; glm4-9b's widths, g 16), each over pages and
@@ -302,22 +304,28 @@ def _held_quant_decode(name, kernel, plain, args, label, window=0):
     probability step at each slot whose plain x = p * vs / scale lies within
     its delta of a rounding half-integer).  Where the limit without the term
     is exceeded, prints the element, the slots whose quantized probability
-    differs between the kernel (read back from its scratch buffer, which
-    holds them after the call) and the plain version, and the plain x there.
-    args: q, k8, ks, v8, vs, tables or rows, positions."""
+    differs between the kernel (read back from its workspace, which holds
+    them after the call: ``kernels/_paged.py`` quant_decode_p8) and the
+    plain version, and the plain x there.  args: q, k8, ks, v8, vs, tables
+    or rows, positions."""
     import torch
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels._paged import (KERNEL_ABS, KERNEL_REL,
+                                            quant_decode_p8,
+                                            quant_decode_workspace,
                                             quant_decode_x, quant_flip_term)
     from repro_torch.models.attention import gather_paged_cache
     q, k8, ks, v8, vs, index, positions = args
     paged = index.dim() == 2
     b, h, hd = q.shape
+    kv = k8.shape[2]
     width = index.shape[1] * k8.shape[1] if paged else k8.shape[1]
+    w_slots = min(width, window) if window else width
     call = kda._decode_quant if paged else kda._rows_decode_quant
-    scratch = torch.empty((b, h, width), dtype=torch.float32, device=q.device)
+    ws = torch.empty(quant_decode_workspace(b, h, kv, hd, w_slots),
+                     dtype=torch.float32, device=q.device)
     launches = kernel.launches
-    out = call(kernel, *args, window, scratch=scratch)
+    out = call(kernel, *args, window, workspace=ws)
     again = call(kernel, *args, window)
     torch.cuda.synchronize()
     kernel.launches = launches
@@ -349,7 +357,7 @@ def _held_quant_decode(name, kernel, plain, args, label, window=0):
         n = min(min(pos + 1, window) if window else pos + 1, width)
         at = (bi, head // g, head % g)
         xr, dr = x[at][:n], delta[at][:n]
-        mine = scratch[bi, head, :n]
+        mine = quant_decode_p8(ws, b, h, kv, w_slots)[bi, head, :n]
         theirs = torch.round(xr).clamp(-127, 127)
         apart = (mine != theirs).nonzero().flatten().tolist()
         print(f"  element (b={bi}, head={head}, d={d}): p8 differs at "
@@ -608,12 +616,9 @@ def phase_kernels(dev, gen, card):
                     entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if kv != h:
                     continue
-                call_ms = None
-                if decode:
-                    ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
-                else:                # row 7: device times (a tiled body)
-                    ms = _device_ms(kernel, lambda: kernel(*args, **kw))
-                    call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+                # rows 2b and 7: device times (a split and a tiled body)
+                ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
                 if entry is not None:        # the one-page tile
                     entry["ms_page_tile"] = ms
                     print(f"kernel {name}: ms={ms:.4f} call_ms="
@@ -920,8 +925,9 @@ def phase_rolling_kernels(dev, card):
             bound = (_roofline(n_bytes, 0, ops) if quant
                      else _roofline(n_bytes, ops))
             lib_ms = call_ms = None
-            if quant:
-                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            if quant:               # row 2br: device times (a split body)
+                ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             else:                   # row 2r: device times (a split body)
                 kg = gather_paged_cache(case["k"], case["tables"]).transpose(1, 2)
                 vg = gather_paged_cache(case["v"], case["tables"]).transpose(1, 2)
@@ -1120,9 +1126,7 @@ def phase_contiguous_kernels(dev, card):
                 continue
             plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
             lib_ms = call_ms = None
-            if q8 and decode:
-                ms = _kernel_ms(kernel, lambda: kernel(*args))
-            elif q8:                 # row 10: device times (a tiled body)
+            if q8:            # rows 2bc, 10: device times (split, tiled body)
                 ms = _device_ms(kernel, lambda: kernel(*args))
                 call_ms = _kernel_ms(kernel, lambda: kernel(*args))
             else:
@@ -1242,8 +1246,9 @@ def phase_contiguous_kernels(dev, card):
             bound = (_roofline(n_bytes, 0, ops) if q8
                      else _roofline(n_bytes, ops))
             lib_ms = call_ms = None
-            if q8:
-                ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
+            if q8:                 # row 2bcr: device times (a split body)
+                ms = _device_ms(kernel, lambda: kernel(*args, **kw))
+                call_ms = _kernel_ms(kernel, lambda: kernel(*args, **kw))
             else:                  # row 2cr: device times (a split body)
                 kg, vg = (x.transpose(1, 2) for x in _row_views(case))
                 idx = torch.arange(window, device=dev)
@@ -1266,6 +1271,7 @@ def phase_contiguous_kernels(dev, card):
                                                hd, dev)),
         4096)
     _split_decode_cases(dev)
+    _quant_split_cases(dev)
     return results
 
 
@@ -1324,16 +1330,87 @@ def _split_decode_cases(dev):
         _held(rows.__name__, rows,
               lambda *a, **_: kda.contiguous_decode_attention_plain(
                   *a, rolling_window=window), row_args, text, **kw)
-        over_pages = paged(*paged_args, **kw)
-        over_rows = rows(*row_args, **kw)
-        torch.cuda.synchronize()
-        equal = torch.equal(over_pages, over_rows)
-        print(f"kernel {rows.__name__} over rows == {paged.__name__} over "
-              f"pages ({label}, S = nb * bs = {views[0].shape[1]}): {equal}",
-              flush=True)
-        if not equal:
-            raise AssertionError(f"{rows.__name__} and {paged.__name__} "
-                                 f"differ on one logical cache")
+        _rows_match_pages(label, paged, rows, paged_args, row_args, kw)
+    for w, n in zip(wrappers, launches):
+        w.launches = n
+
+
+def _rows_match_pages(label, paged, rows, paged_args, row_args, kw):
+    """The kernel over rows must give the paged kernel's bits on one
+    logical cache (table width nb * bs = row width S): one fold order."""
+    import torch
+    over_pages = paged(*paged_args, **kw)
+    over_rows = rows(*row_args, **kw)
+    torch.cuda.synchronize()
+    equal = torch.equal(over_pages, over_rows)
+    print(f"kernel {rows.__name__} over rows == {paged.__name__} over "
+          f"pages ({label}, S = nb * bs = {row_args[1].shape[1]}): {equal}",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"{rows.__name__} and {paged.__name__} "
+                             f"differ on one logical cache")
+
+
+def _quant_split_cases(dev):
+    """Rows 2b, 2bc, 2br and 2bcr (the int8 split body,
+    ``csrc/decode_attention_quant_split.cuh``) on extra held cases drawn
+    from a generator of their own: glm4-9b's widths (H 32, Kv 2, hd 128: g
+    16, the whole query tile) over contexts up to 640; contexts of 1 slot,
+    of one split (DECODE_SPLIT = 512 slots), one more, two splits and one
+    more at stablelm's widths (full cache), and of 1, 512 and 513 slots at
+    mixtral's (rolling, W 4096, rows of exactly W slots and wrapped rows)
+    and at hd 32 (H 8, Kv 4), the one head width no model here runs.
+    Each case is one logical cache, paged and as rows (table width nb * bs
+    = row width S), held to the int8 decode limit (the flip term
+    included); over rows the kernel must give the paged kernel's bits (one
+    fold order).  These launches do not count."""
+    import torch
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels._paged import DECODE_SPLIT as L
+    from repro_torch.models.attention import gather_paged_cache
+    gen = np.random.default_rng(SEED + 14)
+    wrappers = (kda.paged_decode_attention_quant,
+                kda.contiguous_decode_attention_quant,
+                kda.paged_decode_attention_quant_rolling,
+                kda.contiguous_decode_attention_quant_rolling)
+    launches = [w.launches for w in wrappers]
+    edges = [0, L - 1, L]
+    cases = [
+        ("glm4-9b widths", 32, 2, 128, 0,
+         [0, L - 1, L, 639, *(gen.integers(100, 640, 4) - 1)]),
+        ("stablelm widths, split edges", 32, 32, 64, 0,
+         edges + [2 * L - 1, 2 * L, 63, 64, 639]),
+        ("mixtral widths, split edges", 32, 8, 128, 4096,
+         edges + [4095, 4096, 8999]),
+        ("hd 32, g 2", 8, 4, 32, 0, edges + [100, 777]),
+    ]
+    for label, h, kv, hd, window, pos in cases:
+        pos = np.asarray(pos, np.int64)
+        b = len(pos)
+        if window:
+            case = _rolling_case(gen, [(int(p), 1) for p in pos], window, h,
+                                 kv, hd, 16, dev)
+            paged, rows = wrappers[2:]
+        else:
+            case = _paged_case(gen, pos, np.arange(b), b, h, kv, hd, 16, dev)
+            paged, rows = wrappers[:2]
+        paged_args = _quant(case)
+        views = [gather_paged_cache(c, case["tables"]).contiguous()
+                 for c in paged_args[1:5]]
+        idx = torch.arange(b, dtype=torch.int32, device=dev)
+        row_args = [case["q"], *views, idx, case["positions"]]
+        kw = {"window": window} if window else {}
+        width = case["tables"].shape[1] * 16
+        text = (f"{label}: H={h} Kv={kv} hd={hd} B={b} contexts "
+                f"{sorted(np.minimum(pos + 1, window or width).tolist())}"
+                + (f" W={window}" if window else ""))
+        _held_quant_decode(paged.__name__, paged,
+                           kda.paged_decode_attention_quant_plain, paged_args,
+                           text, window)
+        _held_quant_decode(rows.__name__, rows,
+                           kda.contiguous_decode_attention_quant_plain,
+                           row_args, text, window)
+        _rows_match_pages(label, paged, rows, paged_args, row_args, kw)
     for w, n in zip(wrappers, launches):
         w.launches = n
 

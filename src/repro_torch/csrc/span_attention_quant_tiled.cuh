@@ -52,7 +52,7 @@
 //      the latency): their row maxima and max |p vs| meet in shared memory
 //      once a p-tile (exact), their sums l and accumulators are added at
 //      the end (fp32 sums in another order).  q8 and qs are computed once
-//      per block (pquant::load_query's arithmetic); q8 stays in registers
+//      per block (paged_attention_quant.cuh's rule); q8 stays in registers
 //      as the A fragments.  hd 16 is zero-padded to the k-depth 32.
 //   2. Both dots on the int8 tensor cores, mma.sync.m16n8k32 s8 x s8 ->
 //      s32: exact, as the function needs.  A warp's 16 rows x a 512-slot
@@ -134,16 +134,6 @@ namespace q8 {
 
 using i8 = signed char;
 
-// c += a (16 x 32, row) * b (32 x 8, col); s8 in, exact s32 accumulators
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // four 8 x 16-byte matrices (ldmatrix .b16 moves bytes as pairs)
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const i8* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -152,19 +142,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const i8* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a)
       : "memory");
-}
-
-// w[j] holds bytes (c = 0..3) of row j; o[c] gets byte c of rows 0..3
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
-                                           uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-  o[0] = __byte_perm(t0, t2, 0x5410);
-  o[1] = __byte_perm(t0, t2, 0x7632);
-  o[2] = __byte_perm(t1, t3, 0x5410);
-  o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // ---------------------------------------------------------------------------
@@ -472,7 +449,7 @@ __device__ __forceinline__ void attend(
     misc[5] = n;
   }
 
-  // 3. q8 and qs of the warp's 16 rows (pquant::load_query's arithmetic),
+  // 3. q8 and qs of the warp's 16 rows (the quantization rule),
   // then its A fragments
   cp_async_wait<0>();
   __syncthreads();

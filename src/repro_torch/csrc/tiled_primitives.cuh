@@ -1,10 +1,14 @@
 // Primitives of the port's tensor-core attention bodies: the span body
 // (span_attention_tiled.cuh, PERF.md rows 1, 6, 9 and 11), the flash
-// prefill body (flash_attention.cu, rows 3, 3n and 3w) and the split
-// decode body (decode_attention_split.cuh, rows 2, 2c, 2r and 2cr).
+// prefill body (flash_attention.cu, rows 3, 3n and 3w), the split
+// decode bodies (decode_attention_split.cuh, rows 2, 2c, 2r and 2cr;
+// decode_attention_quant_split.cuh, rows 2b, 2bc, 2br and 2bcr) and the
+// int8 span body (span_attention_quant_tiled.cuh, rows 7, 8, 10 and 12).
 // 16-byte cp.async copies (zero-filled where there is nothing to read),
-// ldmatrix (.trans for V), mma.sync.m16n8k16 bf16 products into fp32,
-// the bf16 hi + lo split of fp32 probabilities, a multiply-shift
+// ldmatrix (.trans for V), mma.sync.m16n8k16 bf16 products into fp32 and
+// m16n8k32 s8 products into s32, the byte transposition that makes int8 V
+// rows B fragments, the bf16 hi + lo split of fp32 probabilities, a
+// multiply-shift
 // division by the page size, and fold_tile: one 64-slot K/V tile folded
 // into a warp's 16 query rows (S = Q K^T, the online softmax, O += P V).
 #pragma once
@@ -91,6 +95,33 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32, row) * b (32 x 8, col); s8 in, exact s32 accumulators
+// (the int8 bodies: span_attention_quant_tiled.cuh and
+// decode_attention_quant_split.cuh)
+__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w[j] holds bytes (c = 0..3) of row j; o[c] gets byte c of rows 0..3: four
+// slots' words of an int8 V row become the B fragments (four consecutive k)
+// of four n-blocks
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
+                                           uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // (x, y) as bf16 hi + lo pairs: hi = bf16(x), lo = bf16(x - hi)

@@ -1,9 +1,9 @@
 """Input checks, launch geometry and the limit against their plain
 versions shared by the attention kernels (``span_attention``,
 ``decode_attention``), paged and contiguous; see
-``csrc/paged_attention_quant.cuh``, ``csrc/span_attention_tiled.cuh``,
-``csrc/span_attention_quant_tiled.cuh`` and
-``csrc/decode_attention_split.cuh`` for the kernels' bodies.
+``csrc/span_attention_tiled.cuh``, ``csrc/span_attention_quant_tiled.cuh``,
+``csrc/decode_attention_split.cuh`` and
+``csrc/decode_attention_quant_split.cuh`` for the kernels' bodies.
 
 Two cache layouts: paged, [n_blocks, bs, Kv, hd] leaves read through
 [B, nb] int32 block tables; and contiguous rows, [R, S, Kv, hd] leaves
@@ -32,11 +32,12 @@ KERNEL_ABS = 1e-5
 # 2br and 2bcr) normalise the softmax over the whole context, then quantize
 # x = p * vs / scale to p8 = round(x) (scale = max |p * vs| / 127 + 1e-8 per
 # (row, head)).  The kernel sums the denominator S = sum of e_s =
-# exp(score_s - max) in another order than the plain version (lane-strided
-# partial sums, then a butterfly), so an x that lies on a rounding
-# half-integer can give a p8 one step apart, and an output element then
-# moves by ps * |v8[s, d]|, more than the limit above where |plain| is
-# small.  QUANT_FLIP_TERM's bound on that:
+# exp(score_s - max) in another order than the plain version (per chunk of
+# DECODE_SPLIT slots lane-strided partial sums, then a butterfly; the
+# chunks in order), so an x that lies on a rounding half-integer can give a
+# p8 one step apart, and an output element then moves by ps * |v8[s, d]|,
+# more than the limit above where |plain| is small.  QUANT_FLIP_TERM's
+# bound on that:
 # - both sums are of the same fp32 e_s (same scores, same expf), each
 #   within gamma(n - 1) * S of the exact sum in any order (n visible slots,
 #   gamma(k) = k u / (1 - k u), u = 2^-24: the fp32 unit roundoff), so the
@@ -121,18 +122,20 @@ def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
         raise ValueError("the tiled kernels need 16-byte aligned inputs")
 
 
-# The split decode body of the bf16 decode kernels
-# (csrc/decode_attention_split.cuh): chunks of DECODE_SPLIT slots from slot
-# 0 (the C entry refuses another value), g = H / Kv up to 16 (the rows of
-# one mma tile), hd in TILED_WIDTHS
+# The split decode bodies of the bf16 and int8 decode kernels
+# (csrc/decode_attention_split.cuh, csrc/decode_attention_quant_split.cuh):
+# chunks of DECODE_SPLIT slots from slot 0 (the C entries refuse another
+# value), g = H / Kv up to 16 (the rows of one mma tile), hd in
+# TILED_WIDTHS
 DECODE_SPLIT = 512
 DECODE_MAX_GROUP = 16
 
 
 def check_decode_split(q: torch.Tensor, kv_heads: int, tensors) -> None:
-    """The split decode body's shapes, for a CUDA call: 1 <= g <=
-    DECODE_MAX_GROUP, hd in TILED_WIDTHS, 16-byte aligned data (cp.async).
-    Raises ValueError; the caller never falls back to the plain version."""
+    """The split decode bodies' shapes, for a CUDA call (bf16 or int8): 1
+    <= g <= DECODE_MAX_GROUP, hd in TILED_WIDTHS, 16-byte aligned data
+    (cp.async, 16-byte loads).  Raises ValueError; the caller never falls
+    back to the plain version."""
     h, hd = q.shape[1], q.shape[2]
     if not 1 <= h // kv_heads <= DECODE_MAX_GROUP or hd not in TILED_WIDTHS:
         raise ValueError(f"the split decode kernel takes g = H / Kv in "
@@ -148,6 +151,34 @@ def decode_workspace(b: int, h: int, kv: int, hd: int, width: int) -> int:
     rows over ``width`` slots: (max, sum, o[hd]) for each (row, query head,
     chunk)."""
     return b * h * -(-width // DECODE_SPLIT) * (hd + 2)
+
+
+def quant_decode_workspace(b: int, h: int, kv: int, hd: int,
+                           width: int) -> int:
+    """fp32 entries of the int8 split decode body's workspace
+    (csrc/decode_attention_quant_split.cuh) for B = b rows over ``width``
+    slots: for each (row, query head, chunk of DECODE_SPLIT slots) the
+    chunk's scores (then p * vs, then p8) and its max, sum and max |p *
+    vs|; for each (row, kv head, chunk) its slots' V scales; for each (row,
+    query head) hd int32 sums of p8 . v8; for each (row, kv head) a count
+    of the chunks done."""
+    n_split = -(-width // DECODE_SPLIT)
+    return (b * h * n_split * (DECODE_SPLIT + 3)
+            + b * kv * n_split * DECODE_SPLIT + b * h * hd + b * kv)
+
+
+def quant_decode_p8(workspace: torch.Tensor, b: int, h: int, kv: int,
+                    width: int) -> torch.Tensor:
+    """The quantized probabilities p8 that a CUDA call of the int8 decode
+    kernels leaves in its workspace, as [B, H, n_split * DECODE_SPLIT]
+    floats: entry [b, head, s] is slot s's (valid for s below the row's
+    visible count).  The workspace's first region is [B, Kv, n_split, g,
+    DECODE_SPLIT]."""
+    n_split = -(-width // DECODE_SPLIT)
+    g = h // kv
+    p = workspace[:b * h * n_split * DECODE_SPLIT]
+    return p.view(b, kv, n_split, g, DECODE_SPLIT).permute(0, 1, 3, 2, 4) \
+        .reshape(b, h, n_split * DECODE_SPLIT)
 
 
 def plan_ints(t: int, rows: int, g: int) -> int:

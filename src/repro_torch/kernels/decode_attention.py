@@ -15,7 +15,11 @@ CUDA kernels:
 - ``csrc/decode_attention_quant.cu`` has no TPU kernel before it: the
   reference runs the jnp ``decode_attention_quant`` on the gathered view
   (repro/models/transformer.py:110-133).  It reads the int8 cache through
-  the table (``csrc/paged_attention_quant.cuh``).
+  the table.  Its body, ``csrc/decode_attention_quant_split.cuh``, splits
+  the visible slots into the same chunks and computes the function in four
+  grid-wide passes through a workspace the wrapper allocates
+  (``_paged.quant_decode_workspace``), both products on the int8 tensor
+  cores; it takes the same shapes and raises ``ValueError`` on others.
 
 Both have a rolling mode for sliding-window models, whose cache keeps
 position p at slot p % W: the visible slots are 0..min(pos + 1, W) - 1
@@ -28,8 +32,8 @@ from the full-cache ones.
 Both also have a contiguous mode (the contiguous KV layout: caches
 [R, S, Kv, hd], decode row b reading cache row ``rows[b]``), the Pallas
 ``decode_attention``'s own layout with lengths = positions + 1, over
-the same bodies (the split body's ``ContiguousChunk``, the int8
-kernel's ``RowIndex``): :func:`contiguous_decode_attention`,
+the same bodies (their ``ContiguousChunk`` and ``ContiguousRows``):
+:func:`contiguous_decode_attention`,
 :func:`contiguous_decode_attention_rolling`,
 :func:`contiguous_decode_attention_quant` and
 :func:`contiguous_decode_attention_quant_rolling`, each counting its own
@@ -74,7 +78,7 @@ def _kernel():
 def _quant_kernel():
     return _build.load("decode_attention_quant",
                        "paged_decode_attention_quant",
-                       [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P])
+                       [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P])
 
 
 def _check_window(window: int) -> None:
@@ -156,8 +160,23 @@ def paged_decode_attention_quant_plain(q, k8, ks, v8, vs, block_tables,
                                   rolling_window=rolling_window)
 
 
+def _quant_workspace(q, kv, width, workspace):
+    """The int8 split body's workspace for a CUDA call: ``workspace`` if
+    given (a check passes its own to read the quantized probabilities
+    back, ``_paged.quant_decode_p8``), else a new one."""
+    b, h, hd = q.shape
+    size = _paged.quant_decode_workspace(b, h, kv, hd, width)
+    if workspace is None:
+        return torch.empty(size, dtype=torch.float32, device=q.device)
+    if (workspace.numel() < size or workspace.dtype != torch.float32
+            or workspace.device != q.device):
+        raise ValueError(f"the workspace needs {size} fp32 entries on "
+                         f"{q.device}")
+    return workspace
+
+
 def _decode_quant(wrapper, q, k8, ks, v8, vs, block_tables, positions,
-                  window, scratch=None):
+                  window, workspace=None):
     _paged.check_quant(q, k8, ks, v8, vs, block_tables,
                        {"positions": positions})
     if block_tables.shape[0] != q.shape[0]:
@@ -170,16 +189,14 @@ def _decode_quant(wrapper, q, k8, ks, v8, vs, block_tables, positions,
     b, h, hd = q.shape
     n_blocks, bs, kv = k8.shape[:3]
     nb = block_tables.shape[1]
+    _paged.check_decode_split(q, kv, (k8, v8))
+    width = min(nb * bs, window) if window else nb * bs
+    ws = _quant_workspace(q, kv, width, workspace)
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
-    # the scores, then the quantized probabilities, of each (row, head)
-    # (chip_smoke.py passes its own to read the probabilities back)
-    if scratch is None:
-        scratch = torch.empty((b, h, nb * bs), dtype=torch.float32,
-                              device=q.device)
     rc = _quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
                          v8.data_ptr(), vs.data_ptr(), block_tables.data_ptr(),
-                         positions.data_ptr(), scratch.data_ptr(),
-                         out.data_ptr(), b, h, kv, hd, bs, nb, n_blocks,
+                         positions.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                         b, h, kv, hd, bs, nb, n_blocks, _paged.DECODE_SPLIT,
                          window, hd ** -0.5, _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
@@ -195,7 +212,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
     """:func:`paged_decode_attention` over the int8 cache (k8/v8 int8
     [n_blocks, bs, Kv, hd] with bf16 scales ks/vs [n_blocks, bs, Kv]).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 q, hd a multiple of 16)."""
+    (bf16 q, g = H / Kv up to 16, hd in 16, 32, 64, 128)."""
     return _decode_quant(paged_decode_attention_quant, q, k8, ks, v8, vs,
                          block_tables, positions, 0)
 
@@ -232,7 +249,7 @@ def _rows_kernel():
 def _rows_quant_kernel():
     return _build.load("decode_attention_quant",
                        "contiguous_decode_attention_quant",
-                       [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P])
+                       [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P])
 
 
 def contiguous_decode_attention_plain(q, k_cache, v_cache, rows, positions,
@@ -308,7 +325,7 @@ def contiguous_decode_attention_quant_plain(q, k8, ks, v8, vs, rows,
 
 
 def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window,
-                       scratch=None):
+                       workspace=None):
     _paged.check_quant(q, k8, ks, v8, vs, None,
                        {"rows": rows, "positions": positions})
     if q.device.type == "cpu":
@@ -316,15 +333,15 @@ def _rows_decode_quant(wrapper, q, k8, ks, v8, vs, rows, positions, window,
             q, k8, ks, v8, vs, rows, positions, rolling_window=window)
     b, h, hd = q.shape
     r, s, kv = k8.shape[:3]
+    _paged.check_decode_split(q, kv, (k8, v8))
+    ws = _quant_workspace(q, kv, min(s, window) if window else s, workspace)
     out = torch.empty((b, h * hd), dtype=q.dtype, device=q.device)
-    # the scores, then the quantized probabilities, of each (row, head)
-    if scratch is None:
-        scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     rc = _rows_quant_kernel()(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
                               v8.data_ptr(), vs.data_ptr(), rows.data_ptr(),
-                              positions.data_ptr(), scratch.data_ptr(),
-                              out.data_ptr(), b, h, kv, hd, r, s, window,
-                              hd ** -0.5, _paged.stream_ptr(q))
+                              positions.data_ptr(), ws.data_ptr(),
+                              out.data_ptr(), b, h, kv, hd, r, s,
+                              _paged.DECODE_SPLIT, window, hd ** -0.5,
+                              _paged.stream_ptr(q))
     if rc:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{rc}")
@@ -338,8 +355,8 @@ def contiguous_decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
                                       positions: torch.Tensor) -> torch.Tensor:
     """:func:`contiguous_decode_attention` over int8 rows (k8/v8 int8
     [R, S, Kv, hd] with bf16 scales ks/vs [R, S, Kv]).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (bf16 q, hd a
-    multiple of 16)."""
+    the plain version; CUDA tensors launch the kernel (bf16 q, g = H / Kv
+    up to 16, hd in 16, 32, 64, 128)."""
     return _rows_decode_quant(contiguous_decode_attention_quant, q, k8, ks,
                               v8, vs, rows, positions, 0)
 

@@ -21,8 +21,9 @@ at the shapes of ``chip_smoke.py``'s engine phase.  For the dense model:
 Then for mixtral-8x7b at its published widths, cut to the 16 of its 32
 layers that one card holds, as in ``chip_smoke.py``: the first stage's decode
 step (B = 4 rows, two of them past the W = 4096 window), rolling chunk
-step (T = 256 over 4 rows, wrapped and not), the same chunk step over
-the int8 rolling cache (a ``kv_quant`` model) and monolithic prefill step
+step (T = 256 over 4 rows, wrapped and not), the same decode and chunk
+steps over the int8 rolling cache (a ``kv_quant`` model) and monolithic
+prefill step
 (one prompt of 4500 tokens, longer than W: the windowed flash kernel's
 share of a prompt's prefill), and one MoE layer's FFN at T = 4 and T = 256
 tokens.
@@ -136,11 +137,16 @@ def profile_mixtral(seed: int, reps: int, dev, results):
                                   span_seq, last_idx, tables,
                                   span_starts=i32(starts), n_valid=256),
            reps, results)
-    # the same step over the int8 rolling cache (the weights are the same)
+    # the same steps over the int8 rolling cache (the weights are the same)
     model_q = build_model(cfg, ModelOptions(kv_quant=True))
     first_q = split_for_pp(model_q, params, 2)[0]
     cache_q = model_q.paged_cache(first_q.n_groups, 4 * nb + 1, BS,
                                   device=dev)
+    _piece(f"mixtral first stage decode step, int8 cache (B=4, "
+           f"{first_q.n_groups} layers)",
+           lambda: first_q.decode_fn(first_q.params, cache_q, tok, pos,
+                                     tables),
+           reps, results)
     _piece(f"mixtral first stage rolling chunk step, int8 cache (T=256, "
            f"{first_q.n_groups} layers)",
            lambda: first_q.chunk_fn(first_q.params, cache_q, span, span_pos,

@@ -17,10 +17,13 @@ rounding boundary (kernels/_paged.py).  Here, on the CPU:
 (c) the precision argument at mixtral's widths: with the split, P as hi +
     lo stays within the limit of the fp32 result, one bf16 P does not;
 (d) the int8 decode limit's flip term at chip_smoke.py's shapes: summing
-    the softmax denominator in the kernel's order moves one quantized
-    probability by one step, which the limit without the term refuses and
-    with it admits; the limit still refuses a dropped visible slot and a
-    one-step error at a slot off the boundary.
+    the softmax denominator in another order than the plain version's (the
+    first int8 decode kernel's: the whole row lane-strided, then a
+    butterfly; the split body's order, chunk by chunk, is mirrored in
+    tests/test_torch_int8_decode_split.py) moves one quantized probability
+    by one step, which the limit without the term refuses and with it
+    admits; the limit still refuses a dropped visible slot and a one-step
+    error at a slot off the boundary.
 
 Tolerances: fp32 1e-5 (the same operations summed in other orders); bf16
 2e-2 (both packages round to bf16 after each operation, XLA in a few other
@@ -324,9 +327,10 @@ QSEED = 14        # a draw whose kernel-order denominator flips one p8
 
 
 def _kernel_order_sum(e, n):
-    """decode_quant's denominator (csrc/decode_attention_quant.cu): lane l
-    of a warp sums slots l, l + 32, ... in order, then a butterfly over
-    the 32 lanes.  e [..., S] fp32; the first n slots."""
+    """The first int8 decode kernel's denominator (one warp a head over
+    the whole row, before the split body): lane l of a warp sums slots l,
+    l + 32, ... in order, then a butterfly over the 32 lanes.  e [..., S]
+    fp32; the first n slots."""
     m = -(-n // 32)
     x = F.pad(e[..., :n], (0, m * 32 - n)).reshape(*e.shape[:-1], m, 32)
     acc = torch.zeros(*e.shape[:-1], 32)
@@ -357,9 +361,9 @@ def _quant_out(p8, ps, v8, shape):
 def test_int8_decode_flip_term():
     """At chip_smoke.py's rolling int8 decode case (H 32, Kv 8, hd 128,
     W 4096, B 8 at positions 99-8999), the plain version with its softmax
-    denominator summed in the kernel's order quantizes one probability one
-    step apart.  The limit without the flip term refuses that output; with
-    the term it admits it.  It still refuses a dropped visible slot (the
+    denominator summed in the first int8 kernel's order quantizes one
+    probability one step apart.  The limit without the flip term refuses
+    that output; with the term it admits it.  It still refuses a dropped visible slot (the
     largest p of a row and head) and a one-step error at a slot off the
     boundary."""
     q, k8, ks, v8, vs, pos = _quant_case()
