@@ -111,10 +111,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    Last, whisper-small-smoke (1500 frames, hd 16) on the card
    against the CPU, as in 7.
 9. fused — the reference's fused-op entry point (``kernels/ops.py``):
-   first its two tensor-core kernels, swiglu and rmsnorm_matmul, at the
-   full widths of the products they fuse (stablelm-1.6b's MLP at T 256
-   and 4, one mixtral-8x7b expert at C 80; the norm and w1 of stablelm's
-   MLP entry, both models' LM heads at T 4) and at two ragged shapes,
+   first its two kernels on the wgmma body, swiglu and rmsnorm_matmul,
+   at the full widths of the products they fuse (stablelm-1.6b's MLP at
+   T 256 and 4, one mixtral-8x7b expert at C 80; the norm and w1 of
+   stablelm's MLP entry, both models' LM heads at T 4), at three ragged
+   shapes and at the body's edges (T 1, 16, 17, 64, 257: every token
+   tile, split-K slices with a short last one),
    each held against its plain version run on the same bf16 values with
    its own casts (|error| <= 2^-7 * |plain| + 2^-12 * (|lhs| @ |rhs|) +
    1e-5, ``kernels/_gemm.py``; a second launch must repeat the first bit
@@ -2233,16 +2235,31 @@ def phase_whisper(dev, kernels, card):
 
 # the fused-product kernels' checks, (T, d, ff or F, where the shape comes
 # from); the first of each list is the kernel's entry in the kernels line
+# the wgmma body's edges follow: token tiles of 8, 16, 32 (T 17), 64 and
+# three of 128 (T 257), and split-K slices whose last is short, over a k
+# and a column tail (kernels/_gemm.py plan)
 SWIGLU_CASES = ((256, 2048, 5632, "stablelm-1.6b MLP, a 256-token chunk"),
                 (4, 2048, 5632, "stablelm-1.6b MLP at decode"),
                 (80, 4096, 14336, "one mixtral-8x7b expert, C 80"),
                 (37, 96, 160, "ragged rows, k and column tails"),
-                (5, 96, 160, "few rows, k and column tails"))
+                (5, 96, 160, "few rows, k and column tails"),
+                (1, 2048, 5632, "stablelm-1.6b MLP, one token"),
+                (16, 2048, 5632, "stablelm-1.6b MLP, 16 tokens"),
+                (17, 2048, 5632, "stablelm-1.6b MLP, 17 tokens"),
+                (64, 2048, 5632, "stablelm-1.6b MLP, 64 tokens"),
+                (257, 2048, 5632, "stablelm-1.6b MLP, 257 tokens"),
+                (3, 2080, 1440, "ragged widths, short last split slices"))
 RMSNORM_MM_CASES = ((4, 2048, 100352, "stablelm-1.6b LM head at decode"),
                     (256, 2048, 5632, "stablelm-1.6b MLP entry (norm, w1)"),
                     (4, 4096, 32000, "mixtral-8x7b LM head at decode"),
                     (37, 96, 160, "ragged rows, k and column tails"),
-                    (5, 96, 160, "few rows, k and column tails"))
+                    (5, 96, 160, "few rows, k and column tails"),
+                    (1, 2048, 100352, "stablelm-1.6b LM head, one token"),
+                    (16, 2048, 5632, "stablelm-1.6b MLP entry, 16 tokens"),
+                    (17, 2048, 5632, "stablelm-1.6b MLP entry, 17 tokens"),
+                    (64, 2048, 5632, "stablelm-1.6b MLP entry, 64 tokens"),
+                    (257, 2048, 5632, "stablelm-1.6b MLP entry, 257 tokens"),
+                    (3, 2080, 1440, "ragged widths, short last split slices"))
 
 
 def _held_gemm(name, kernel, plain, args, lhs, rhs, label, **kw):

@@ -34,11 +34,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, _paged
+from repro_torch.launch.timing import device_ms
 from repro_torch.models.attention import gather_paged_cache, quantize_kv
 
 VARIANTS = (1, 0)    # QSPLIT_PDL
 REPS = 20
-SLEEP_CYCLES = 50_000_000
 BS = 16
 PASSES = ("scores", "sums", "pv", "av")
 
@@ -113,20 +113,6 @@ def _case(gen, layout, shape, window, positions, dev):
             min(s, window) if window else s)
 
 
-def _device_ms(fn) -> float:
-    """Device time of one ``fn()``, REPS calls back to back behind a sleep."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
-
-
 def _pass_ms(fn) -> dict:
     """Mean device ms of each pass's kernel over REPS calls."""
     from torch.profiler import ProfilerActivity, profile
@@ -192,7 +178,7 @@ def main(argv=None) -> int:
                 if not torch.equal(out, ref):
                     raise AssertionError(f"{name}: variant {variant} gives "
                                          f"other bits")
-                ms = _device_ms(call)
+                ms = device_ms(call, REPS)
                 passes = _pass_ms(call)
                 results.append(dict(case=name, pdl=variant, rep=rep, ms=ms,
                                     passes=passes))

@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.timing import device_ms
 
 VARIANTS = [(128, 3), (256, 2), (256, 3), (512, 2), (512, 3)]
-SLEEP_CYCLES = 50_000_000
+REPS = 50
 BS = 16
 
 # name, layout, (H, Kv, hd), window, positions (None: draw 8 in 100-640)
@@ -105,19 +106,6 @@ def _case(gen, layout, shape, window, positions, dev):
     return tensors, dims, width, (b, h, kv, hd)
 
 
-def _device_ms(fn, reps=50):
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    torch.cuda._sleep(SLEEP_CYCLES)
-    ev[0].record()
-    for _ in range(reps):
-        fn()
-    ev[1].record()
-    torch.cuda.synchronize()
-    return ev[0].elapsed_time(ev[1]) / reps
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -164,7 +152,7 @@ def main(argv=None) -> int:
                 # each variant sums in its own order: within a few bf16
                 # steps of the first
                 gap = float((out.float() - ref.float()).abs().max())
-                ms = _device_ms(call)
+                ms = device_ms(call, REPS)
                 results.append(dict(case=name, split=split, stages=stages,
                                     rep=rep, ms=ms, max_diff=gap))
                 print(f"sweep {name}: split {split} stages {stages} rep "

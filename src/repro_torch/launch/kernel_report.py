@@ -1,7 +1,8 @@
 """What the compiler made of the port's CUDA kernels: for each kernel
 library, each entry function's registers and spill bytes (``ptxas -v``,
-from the build log) and the count of tensor-core and local-memory
-instructions in its SASS (``cuobjdump -sass``).
+from the build log) and the count of tensor-core (``mma.sync``: IMMA,
+HMMA; ``wgmma``: HGMMA), TMA-load (UTMALDG) and local-memory (LDL, STL:
+spills) instructions in its SASS (``cuobjdump -sass``).
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_report [name ...]
 
@@ -19,7 +20,7 @@ import subprocess
 
 from repro_torch.kernels import _build
 
-OPCODES = ("IMMA", "HMMA", "LDL", "STL")
+OPCODES = ("IMMA", "HMMA", "HGMMA", "UTMALDG", "LDL", "STL")
 
 
 def ptxas_lines(log: str):
