@@ -130,6 +130,19 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    two gate products to bf16; the kernel keeps them in fp32); both kernels
    must have launched there.
 
+Every engine path (4, 5, 6) runs its decode steps as CUDA graphs, the
+engine's default on the card (``core/step_graphs.py``): each stage must
+hold exactly one graph per decode shape (batch, table width) the path
+scheduled and must have replayed it; each path prints its graphs per
+stage, replays and capture ms.  Four paths also run an eager twin
+(``EngineConfig(cuda_graphs=False)``) on the same greedy requests:
+stablelm's paged monolithic (row 2) and int8 monolithic over rows (row
+2bc), and the 2-request runs of mixtral's paged int8 monolithic (row
+2br) and bf16 monolithic over rows (row 2cr); the twin's token streams,
+kernel launch counts and logits must equal the graph run's (a replay
+repeats the eager step bit for bit); the peak memory, TTFT and TPOT of
+both are printed.
+
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  ``--phases`` runs a
@@ -1551,32 +1564,37 @@ def _rows_equal_pages(gen, h, kv, hd, spans, dev):
 
 
 def _engine(engine_cls, params, model, chunk, max_seq_len=640, max_batch=4,
-            kv_layout="auto"):
+            kv_layout="auto", cuda_graphs=None):
     """pp = 2, paged KV unless ``kv_layout`` says otherwise; ``chunk``
     tokens per iteration under the chunked policy, or None: the default
-    policy, monolithic prefill."""
+    policy, monolithic prefill.  Decode steps run as CUDA graphs (the
+    default) unless ``cuda_graphs`` is False."""
     from repro_torch.core.engine import EngineConfig
     ecfg = EngineConfig(pp_degree=2, max_batch=max_batch,
                         max_seq_len=max_seq_len,
                         prefill_chunk_tokens=chunk,
                         scheduling_policy="chunked" if chunk else "auto",
-                        kv_layout=kv_layout, seed=SEED)
+                        kv_layout=kv_layout, seed=SEED,
+                        cuda_graphs=cuda_graphs)
     return engine_cls(model, params, ecfg)
 
 
 def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
            max_seq_len=640, max_batch=4, trace=None, kv_layout="auto",
-           logits=None):
+           logits=None, cuda_graphs=None):
     """Serve ``prompts`` to the end, every launch counter set to 0 just
     before and read just after.  Returns the streams (by request), the
     engine's metrics, the wall seconds, the launches and the peak
     device memory.  ``trace``, a list, receives each iteration's members
     and spans; ``logits``, a list, each sampling step's members and
-    logits (host copies)."""
+    logits (host copies).  With graphs (the default), every stage must
+    hold one graph per decode shape (batch, table width) the run
+    scheduled, and must have replayed; without, none; the metrics gain
+    ``decode_shapes``, those shapes."""
     import torch
     gc.collect()        # the previous run's engine (its threads hold cycles)
     eng = _engine(engine_cls, params, model, chunk, max_seq_len, max_batch,
-                  kv_layout)
+                  kv_layout, cuda_graphs)
     if logits is not None:
         pool = eng._pool_sample
 
@@ -1584,15 +1602,18 @@ def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
             logits.append((list(seq_ids), np.array(x, np.float32)))
             return pool(iteration, slot, seq_ids, x, sp_list)
         eng._pool_sample = record_logits
-    if trace is not None:
-        schedule = eng.scheduler.schedule
+    schedule, shapes = eng.scheduler.schedule, set()
 
-        def record(it):
-            s = schedule(it)
-            if s is not None:
+    def record(it):
+        s = schedule(it)
+        if s is not None:
+            if trace is not None:
                 trace.append((list(s.seq_ids), s.spans))
-            return s
-        eng.scheduler.schedule = record
+            if not s.is_prefill and s.packed_width == 1:
+                shapes.add((len(s.seq_ids), None if s.block_tables is None
+                            else s.block_tables.shape[1]))
+        return s
+    eng.scheduler.schedule = record
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k, _ in kernels:
@@ -1605,6 +1626,17 @@ def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
     launches = {e["name"]: k.launches for k, e in kernels}
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics()
+    m["decode_shapes"] = sorted(shapes, key=str)
+    graphs = [x["graphs"] for x in m["stages"]]
+    replays = [x["graph_replays"] for x in m["stages"]]
+    if eng.cfg.cuda_graphs:
+        if graphs != [len(shapes)] * len(graphs) or min(replays) <= 0:
+            raise AssertionError(
+                f"decode graphs per stage {graphs}, replays {replays}: "
+                f"want one graph per decode shape scheduled {m['decode_shapes']}"
+                " and replays on every stage")
+    elif m["jit_executables"]:
+        raise AssertionError(f"an eager run captured graphs: {graphs}")
     streams = [list(s.output_ids)
                for s in sorted(done, key=lambda s: s.seq_id)]
     del eng
@@ -1629,6 +1661,7 @@ def _report(label, prompts, run, card, n_new, must_launch,
           f"ms, peak memory {peak / 2**30:.2f} GiB, stages busy "
           f"{[round(x['busy_s'], 3) for x in m['stages']]} s on {card}",
           flush=True)
+    print(f"engine {label}: {_graph_line(m)}", flush=True)
     if len(streams) != len(prompts) or any(n != n_new for n in n_tok):
         raise AssertionError(f"{label}: not every request finished with "
                              f"{n_new} tokens: {n_tok}")
@@ -1639,6 +1672,49 @@ def _report(label, prompts, run, card, n_new, must_launch,
         if launches[name]:
             raise AssertionError(f"{name} launched on the {label} path")
     return launches
+
+
+def _graph_line(m):
+    """A run's decode graphs: per stage, the shapes scheduled, replays and
+    capture ms."""
+    shapes = m["decode_shapes"]
+    return (f"decode graphs per stage {[x['graphs'] for x in m['stages']]} "
+            f"(jit_executables {m['jit_executables']}; decode shapes "
+            f"scheduled {len(shapes)}: batch sizes "
+            f"{sorted({b for b, _ in shapes})} x table widths "
+            f"{sorted({w for _, w in shapes}, key=str)}), replays "
+            f"{[x['graph_replays'] for x in m['stages']]}, capture ms "
+            f"{[round(x['graph_capture_s'] * 1e3, 1) for x in m['stages']]}")
+
+
+def _twin(label, graph, eager, graph_logits, eager_logits):
+    """A graph run against its eager twin (``cuda_graphs=False``) on the
+    same greedy requests: the token streams, the kernel launches and the
+    logits must be identical (a replay runs the eager step's kernels on
+    the same values, so every replay repeats the eager step bit for bit);
+    prints the graphs, the capture ms and both runs' peak memory, TTFT
+    and TPOT."""
+    gs, gm, gwall, gl, gpeak = graph
+    es, em, ewall, el, epeak = eager
+    gap, n = _logit_gap(graph_logits, eager_logits)
+    print(f"engine {label} eager twin: streams identical: {gs == es}; "
+          f"launches identical: {gl == el}; max |logits graph - eager| "
+          f"{gap:.3e} over {n} of {len(eager_logits)} sampling steps; "
+          f"{_graph_line(gm)}; peak GiB graph {gpeak / 2**30:.2f} / eager "
+          f"{epeak / 2**30:.2f}; wall s {gwall:.3f} / {ewall:.3f}; TTFT "
+          f"mean ms {gm['ttft_mean_s'] * 1e3:.2f} / "
+          f"{em['ttft_mean_s'] * 1e3:.2f}; TPOT mean ms "
+          f"{gm['tpot_mean_s'] * 1e3:.2f} / {em['tpot_mean_s'] * 1e3:.2f}",
+          flush=True)
+    if gs != es:
+        raise AssertionError(f"{label}: graph streams differ from eager: "
+                             f"{gs} {es}")
+    if gl != el:
+        raise AssertionError(f"{label}: graph launches differ from eager: "
+                             f"{gl} {el}")
+    if gap or n != len(eager_logits) or len(graph_logits) != n:
+        raise AssertionError(f"{label}: graph logits differ from eager by "
+                             f"{gap} (over {n} of {len(eager_logits)} steps)")
 
 
 def _serving_params():
@@ -1671,9 +1747,10 @@ def phase_engine(dev, gen, kernels, card):
     entries = {e["name"]: e for _, e in kernels}
     paged = {}       # each path's streams, for the contiguous phase
 
-    def serve(cls, mdl, sp, chunk, reqs=prompts, logits=None):
+    def serve(cls, mdl, sp, chunk, reqs=prompts, logits=None,
+              cuda_graphs=None):
         return _serve(cls, mdl, params, reqs, sp, chunk, kernels,
-                      logits=logits)
+                      logits=logits, cuda_graphs=cuda_graphs)
 
     def same(label, a, b):
         print(f"engine {label}: greedy SiPipe == Naive: {a == b} "
@@ -1697,10 +1774,14 @@ def phase_engine(dev, gen, kernels, card):
 
     # (a) the default policy: monolithic prefill, no chunk budget
     greedy = SamplingParams(greedy=True, max_new_tokens=32)
-    run = serve(SiPipeEngine, model, greedy, None)
+    logits = ([], [])
+    run = serve(SiPipeEngine, model, greedy, None, logits=logits[0])
     launches = _report("monolithic", prompts, run, card, 32,
                        ("flash_attention", "paged_decode_attention"))
     paged["monolithic"] = run[0]
+    _twin("monolithic", run, serve(SiPipeEngine, model, greedy, None,
+                                   logits=logits[1], cuda_graphs=False),
+          *logits)
     entries["flash_attention"]["launches"] = launches["flash_attention"]
     same("monolithic", run[0], serve(NaivePPEngine, model, greedy, None)[0])
 
@@ -1784,19 +1865,21 @@ def phase_mixtral(dev, kernels, card):
               "paged_decode_attention_quant_rolling"))):
         paged[label] = _mixtral_path(label, build_model(cfg, opts), params,
                                      prompts, pair, chunk, names, kernels,
-                                     card)
+                                     card,
+                                     twin=label == "mixtral int8 monolithic")
     return cfg, params, prompts, pair, paged
 
 
 def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
-                  card, kv_layout="auto", must_not_launch=()):
+                  card, kv_layout="auto", must_not_launch=(), twin=False):
     """One mixtral path: 8 greedy requests through SiPipeEngine (every one
     must finish, ``names`` must launch and ``must_not_launch`` must not),
     then ``pair`` with one request per microbatch, so that each step's
     composition (which an MoE's capacity and the bucket padding see)
     cannot depend on the overlapped engine's timing: SiPipe's schedule and
-    greedy streams must equal NaivePPEngine's.  Returns the 8 streams, the
-    pair's streams and the Naive pair run's logits."""
+    greedy streams must equal NaivePPEngine's; with ``twin``, SiPipe's
+    pair run is checked against its eager twin too.  Returns the 8
+    streams, the pair's streams and the Naive pair run's logits."""
     from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
     from repro_torch.core.sampling_params import SamplingParams
     entries = {e["name"]: e for _, e in kernels}
@@ -1808,12 +1891,15 @@ def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
     for name in names:           # each entry: the first path that runs it
         if not entries[name]["launches"]:
             entries[name]["launches"] = launches[name]
-    traces, logits = ([], []), []
-    a, b = (_serve(cls, model, params, pair, greedy16, chunk, kernels,
-                   max_seq_len=5120, max_batch=1, trace=tr,
-                   kv_layout=kv_layout, logits=lg)[0]
-            for cls, tr, lg in zip((SiPipeEngine, NaivePPEngine), traces,
-                                   (None, logits)))
+    traces, logits, sipipe_logits = ([], []), [], []
+
+    def pair_run(cls, trace=None, lg=None, cuda_graphs=None):
+        return _serve(cls, model, params, pair, greedy16, chunk, kernels,
+                      max_seq_len=5120, max_batch=1, trace=trace,
+                      kv_layout=kv_layout, logits=lg, cuda_graphs=cuda_graphs)
+    runs = [pair_run(cls, tr, lg) for cls, tr, lg in zip(
+        (SiPipeEngine, NaivePPEngine), traces, (sipipe_logits, logits))]
+    a, b = runs[0][0], runs[1][0]
     print(f"engine {label} 2-request (prompts {len(pair[0])}, "
           f"{len(pair[1])}, one per microbatch): schedules equal: "
           f"{traces[0] == traces[1]}; greedy SiPipe == Naive: {a == b} "
@@ -1822,6 +1908,11 @@ def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
         raise AssertionError(f"{label}: schedules differ: {traces}")
     if a != b:
         raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
+    if twin:
+        eager_logits = []
+        _twin(f"{label} 2-request", runs[0],
+              pair_run(SiPipeEngine, lg=eager_logits, cuda_graphs=False),
+              sipipe_logits, eager_logits)
     return dict(streams=run[0], pair=a, logits=logits)
 
 
@@ -1876,6 +1967,8 @@ def phase_contiguous_dense(kernels, card, params, prompts, paged):
         return _serve(cls, mdl, params, reqs, sp, chunk, kernels,
                       kv_layout="contiguous", **kw)
 
+    twin = "contiguous int8 monolithic"     # checked against eager steps
+
     def parity(label, mdl, sp, chunk, reqs, names=None):
         """SiPipe then Naive, greedy: equal schedules and streams; SiPipe's
         run is reported (``names`` must launch); returns it and its
@@ -1897,6 +1990,12 @@ def phase_contiguous_dense(kernels, card, params, prompts, paged):
             raise AssertionError(f"{label}: schedules differ: {traces}")
         if a != b:
             raise AssertionError(f"{label}: greedy streams differ: {a} {b}")
+        if label == twin:
+            eager_logits = []
+            _twin(label, runs[0], serve(SiPipeEngine, mdl, sp, chunk, reqs,
+                                        logits=eager_logits,
+                                        cuda_graphs=False),
+                  logits, eager_logits)
         return runs[0], logits
 
     greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
@@ -1955,7 +2054,8 @@ def phase_contiguous_mixtral(kernels, card, cfg, params, prompts, pair, paged):
         got = _mixtral_path(f"contiguous {label}", build_model(cfg, opts),
                             params, prompts, pair, chunk, names, kernels,
                             card, kv_layout="contiguous",
-                            must_not_launch=not_paged)
+                            must_not_launch=not_paged,
+                            twin=label == "mixtral monolithic")
         quant = opts.kv_quant
         _layouts(f"contiguous {label} 2-request", got["pair"],
                  paged[label]["pair"], exact=not quant,

@@ -60,6 +60,7 @@ from repro_torch.core.sat import StructureAwareChannel, \
     StructureUnawareChannel
 from repro_torch.core.scheduler import Scheduler, SchedulingOutput
 from repro_torch.core.sequence import SeqStatus, Sequence, SequenceCache
+from repro_torch.core.step_graphs import CudaGraphs, StepGraphs
 from repro_torch.core.tsem import (
     BatchMetadataCache,
     ModelInputDescriptor,
@@ -293,6 +294,11 @@ class EngineConfig:
     # per-slot autoregressive gate)
     overlap_sampling: bool = True
     seed: int = 0
+    # decode steps captured once per shape as CUDA graphs and replayed
+    # (core/step_graphs.py; the reference's jit-compiled stage step).
+    # None: on for a CUDA device, off for the CPU; True on the CPU raises.
+    # False runs every step eagerly, op by op
+    cuda_graphs: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -327,6 +333,8 @@ class _StageWorker:
                 stage.n_groups, cfg.max_batch * cfg.pp_degree,
                 cfg.max_seq_len, device=engine.device, dtype=engine.dtype)
         self.meta_cache = BatchMetadataCache(cfg.pp_degree)
+        self.graphs = (StepGraphs(CudaGraphs(engine.device))
+                       if cfg.cuda_graphs else None)
         ch = StructureAwareChannel if cfg.sat else StructureUnawareChannel
         self.out_channel = ch(cfg.channel_round_latency_s) if not stage.is_last else None
         # device step used by the executor
@@ -394,9 +402,54 @@ class _StageWorker:
         stage, eng = self.stage, self.engine
         if desc.sched.block_copies is not None:
             self.apply_copies(desc.sched.block_copies)
+        if desc.width == 1 and self.graphs is not None:
+            out = self._graph_decode(desc, bufs)
+        else:
+            out = self._eager_step(desc, bufs)
+        self.metrics.busy.append((t0, time.monotonic()))
+        if stage.is_last:
+            eng.emit_logits(desc, out)
+        else:
+            eng.send_hidden(stage.index, desc.iteration, out)
+        return True
+
+    def _graph_decode(self, desc: ModelInputDescriptor,
+                      bufs: Dict[str, np.ndarray]) -> np.ndarray:
+        """A decode step through the stage's graphs, keyed by (B, nb)
+        paged and (B,) over rows, as the reference's ``decode_fn``
+        compiles.  The staged host buffers and the hidden state received
+        from the previous stage (host fp32, as in the reference) are
+        copied into the graph's statics."""
+        stage, eng = self.stage, self.engine
+        inputs = {"x": (bufs["tokens"] if stage.is_first
+                        else eng.recv_hidden(stage.index, desc.iteration)),
+                  "positions": bufs["positions"]}
+        if eng.paged:
+            inputs["tables"] = bufs["block_tables"]
+            key = (desc.batch, desc.n_blocks)
+        else:
+            inputs["rows"] = bufs["rows"]
+            key = (desc.batch,)
+        return self.graphs.run(key, inputs, self._decode_step)
+
+    def _decode_step(self, x, positions, tables=None, rows=None):
+        """The captured decode step: the stage's ``decode_fn`` on device
+        inputs, its output in fp32 (the host hand-off's type)."""
+        stage = self.stage
+        if not stage.is_first:
+            x = x.to(self.engine.dtype)
+        return stage.decode_fn(stage.params, self.cache, x, positions,
+                               tables=tables, rows=rows).float()
+
+    def _eager_step(self, desc: ModelInputDescriptor,
+                    bufs: Dict[str, np.ndarray]) -> np.ndarray:
+        """A chunk step, or a decode step without graphs, op by op."""
+        stage, eng = self.stage, self.engine
         x_in = (self._dev(bufs["pack_tokens"] if desc.width > 1
                           else bufs["tokens"]) if stage.is_first
-                else eng.recv_hidden(stage.index, desc.iteration))
+                else torch.tensor(eng.recv_hidden(stage.index,
+                                                  desc.iteration),
+                                  dtype=eng.dtype, device=eng.device))
         # paged-native path: the physical block-major cache and the
         # [B, nb] table go straight into the stage — attention reads K/V
         # through the table (the paged CUDA kernels; no gathered
@@ -420,13 +473,7 @@ class _StageWorker:
         else:
             out = stage.decode_fn(stage.params, self.cache, x_in,
                                   self._dev(bufs["positions"]), **place)
-        out = out.float().cpu().numpy()          # waits for the device
-        self.metrics.busy.append((t0, time.monotonic()))
-        if stage.is_last:
-            eng.emit_logits(desc, out)
-        else:
-            eng.send_hidden(stage.index, desc.iteration, out)
-        return True
+        return out.float().cpu().numpy()          # waits for the device
 
     def run_prefill(self, x_or_tokens: torch.Tensor, pos0: int,
                     last_idx: np.ndarray, place: np.ndarray) -> np.ndarray:
@@ -479,6 +526,13 @@ class PPEngineBase:
             raise ValueError(f"kv_block_size must be >= 1, "
                              f"got {cfg.kv_block_size}")
         window = self.arch.window or None
+        if cfg.cuda_graphs is None:
+            cfg = dataclasses.replace(
+                cfg, cuda_graphs=self.device.type == "cuda")
+        elif cfg.cuda_graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"cuda_graphs=True needs the parameters on a CUDA device, "
+                f"not {self.device}")
         if cfg.kv_layout == "auto":
             # paged, except that rolling caches need whole-block windows:
             # the reference falls back to contiguous rows there (explicit
@@ -593,7 +647,8 @@ class PPEngineBase:
             self._hidden[(from_stage + 1, iteration)] = ch
             self._hcv.notify_all()
 
-    def recv_hidden(self, stage: int, iteration: int):
+    def recv_hidden(self, stage: int, iteration: int) -> np.ndarray:
+        """The previous stage's output for ``iteration``, host fp32."""
         deadline = time.monotonic() + 60
         with self._hcv:
             while (stage, iteration) not in self._hidden:
@@ -601,8 +656,7 @@ class PPEngineBase:
                     raise TimeoutError(f"hidden for stage {stage} iter {iteration}")
                 self._hcv.wait(1.0)
             ch = self._hidden.pop((stage, iteration))
-        return torch.tensor(ch.recv()["hidden"], dtype=self.dtype,
-                            device=self.device)
+        return ch.recv()["hidden"]
 
     # -- sampling ----------------------------------------------------------------
     def emit_logits(self, desc: ModelInputDescriptor, logits: np.ndarray):
@@ -1143,11 +1197,17 @@ class PPEngineBase:
         per_stage = []
         for w in self.stages:
             busy = sum(e - s for s, e in w.metrics.busy)
+            g = w.graphs
             per_stage.append({
                 "busy_s": busy,
                 "prep_s": w.executor.prep_time,
                 "exec_s": w.executor.exec_time,
                 "bubble_frac": max(0.0, 1.0 - busy / wall),
+                # decode steps as CUDA graphs: captured, replayed, and the
+                # seconds the captures took (0 without graphs)
+                "graphs": 0 if g is None else len(g),
+                "graph_replays": 0 if g is None else g.replays,
+                "graph_capture_s": 0.0 if g is None else g.capture_s,
             })
         stats = list(self._request_stats)
         # latency percentiles are ONLINE-tier only (docs/hybrid.md):
@@ -1219,9 +1279,18 @@ class PPEngineBase:
             out["kv_table_widths"] = self.kv_manager.table_widths
             for k, v in self.kv_manager.prefix_stats().items():
                 out[f"kv_{k}"] = v
+        out.update(self.compile_stats())
         for k, v in self.scheduler.policy.metrics().items():
             out[f"policy_{k}"] = v
         return out
+
+    def compile_stats(self) -> Dict[str, int]:
+        """The reference's executable count (repro/core/engine.py:1150):
+        here the decode-step graphs captured over all stages, one per
+        (batch, table width) shape a stage ran; 0 without graphs (the
+        CPU).  Chunk and prefill steps run eagerly and add none."""
+        return {"jit_executables": sum(len(w.graphs) for w in self.stages
+                                       if w.graphs is not None)}
 
 
 class SiPipeEngine(PPEngineBase):

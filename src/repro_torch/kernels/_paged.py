@@ -11,6 +11,7 @@ indexed by an int32 row per token or per decode row (``block_tables``
 None below).  int8 scales drop the last axis."""
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -289,10 +290,38 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``; the pipeline's stage threads
-    launch concurrently, and ``+=`` on an attribute is not atomic."""
+    launch concurrently, and ``+=`` on an attribute is not atomic.  Inside
+    :func:`record_launches` on this thread the launch is recorded instead:
+    a CUDA graph's capture enqueues no kernel."""
+    record = getattr(_recording, "record", None)
+    if record is not None:
+        record[wrapper] = record.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Record, and do not count, the launches this thread makes inside
+    the block: yields ``{wrapper: launches}``, which :func:`add_launches`
+    counts at each replay of the graph captured there.  Other threads
+    count as usual."""
+    prev = getattr(_recording, "record", None)
+    _recording.record = record = {}
+    try:
+        yield record
+    finally:
+        _recording.record = prev
+
+
+def add_launches(record) -> None:
+    """Count a recorded set of launches (a graph replay's)."""
+    with _count_lock:
+        for wrapper, n in record.items():
+            wrapper.launches += n

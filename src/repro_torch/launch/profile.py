@@ -34,6 +34,11 @@ frames, a 4-token prompt, a 36-slot decode cache): one encoder layer,
 the whole encoder, the whole prefill (encoder, then the decoder over the
 prompt; the decoder's share is the difference) and one decode step.
 
+Every decode step above (stablelm's paged, rows and int8; mixtral's
+bf16 and int8) is timed a second time as a CUDA graph replay (" · graph"):
+the step captured once, as the engine captures it
+(``core/step_graphs.CudaGraphs``), on the same inputs, in the same call.
+
 Prints one line per piece and, last, one JSON object with every number
 beside the card's name and power limit.
 """
@@ -54,6 +59,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.engine import split_for_pp
 from repro_torch.core.sampler import ColumnWiseSampler
 from repro_torch.core.sampling_params import SamplingParams
+from repro_torch.core.step_graphs import CudaGraphs
 from repro_torch.models.registry import ModelOptions, build_model
 from repro_torch.models.stacked import tree_map
 
@@ -99,7 +105,9 @@ def _profile(fn, reps: int, top: int = 6):
     return busy / wall_us, [(k[:60], t / reps / 1e3) for k, t in kernels[:top]]
 
 
-def _piece(name, fn, reps, results, profile=True):
+def _piece(name, fn, reps, results, profile=True, graph=False):
+    """Time ``fn`` (host ms, device ms, busy share, top kernels); with
+    ``graph``, then again as the replay of its capture."""
     for _ in range(3):
         fn()
     row = {"host_ms": _host_ms(fn, reps), "device_ms": _device_ms(fn, reps)}
@@ -107,6 +115,14 @@ def _piece(name, fn, reps, results, profile=True):
         row["busy_share"], row["top_kernels_ms"] = _profile(fn, reps)
     results[name] = row
     print(f"{name}: {json.dumps(row)}", flush=True)
+    if graph:
+        backend = CudaGraphs(torch.cuda.current_device())
+        with backend.active():
+            fn()          # the stream's first cuBLAS call, outside capture
+            g, _ = backend.capture(fn)
+        torch.cuda.current_stream().wait_stream(backend.stream)
+        _piece(f"{name} · graph", lambda: backend.replay(g), reps, results,
+               profile)
 
 
 def profile_mixtral(seed: int, reps: int, dev, results):
@@ -125,7 +141,7 @@ def profile_mixtral(seed: int, reps: int, dev, results):
     tok, pos = i32([1, 2, 3, 4]), i32([4700, 300, 4500, 100])
     _piece(f"mixtral first stage decode step (B=4, {first.n_groups} layers)",
            lambda: first.decode_fn(first.params, cache, tok, pos, tables),
-           reps, results)
+           reps, results, graph=True)
     starts = np.array([4500, 100, 4050, 3000])
     span = i32(np.arange(256) % cfg.vocab_size)
     span_pos = i32(np.concatenate([s + np.arange(64) for s in starts]))
@@ -146,7 +162,7 @@ def profile_mixtral(seed: int, reps: int, dev, results):
            f"{first_q.n_groups} layers)",
            lambda: first_q.decode_fn(first_q.params, cache_q, tok, pos,
                                      tables),
-           reps, results)
+           reps, results, graph=True)
     _piece(f"mixtral first stage rolling chunk step, int8 cache (T=256, "
            f"{first_q.n_groups} layers)",
            lambda: first_q.chunk_fn(first_q.params, cache_q, span, span_pos,
@@ -217,7 +233,7 @@ def profile_dense(args, dev, results):
     tok, pos = i32([1, 2, 3, 4]), i32([500, 400, 300, 600])
     _piece("first stage decode step (B=4)",
            lambda: first.decode_fn(first.params, caches[0], tok, pos, tables),
-           args.reps, results)
+           args.reps, results, graph=True)
     span = i32(np.arange(256))
     span_pos = i32(np.concatenate([np.arange(64) + 100 * i for i in range(4)]))
     span_seq = i32(np.repeat(np.arange(4), 64))
@@ -231,7 +247,8 @@ def profile_dense(args, dev, results):
     batch_rows = i32([5, 2, 7, 0])
     _piece("first stage decode step, contiguous rows (B=4)",
            lambda: first.decode_fn(first.params, rows, tok, pos,
-                                   rows=batch_rows), args.reps, results)
+                                   rows=batch_rows), args.reps, results,
+           graph=True)
     _piece("first stage chunk step, contiguous rows (T=256)",
            lambda: first.chunk_fn(first.params, rows, span, span_pos,
                                   span_seq, last_idx, rows=batch_rows),
@@ -249,7 +266,7 @@ def profile_dense(args, dev, results):
     cache_q = model_q.paged_cache(first_q.n_groups, n_blocks, BS, device=dev)
     _piece("first stage decode step, int8 cache (B=4)",
            lambda: first_q.decode_fn(first_q.params, cache_q, tok, pos,
-                                     tables), args.reps, results)
+                                     tables), args.reps, results, graph=True)
     _piece("first stage chunk step, int8 cache (T=256)",
            lambda: first_q.chunk_fn(first_q.params, cache_q, span, span_pos,
                                     span_seq, last_idx, tables),
