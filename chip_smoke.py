@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,mixtral,contiguous,reference,whisper,fused]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,serving,mixtral,contiguous,reference,whisper,fused]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -129,6 +129,27 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    within tests/test_kernels.py's oracle tolerance (the model rounds the
    two gate products to bf16; the kernel keeps them in fp32); both kernels
    must have launched there.
+10. serving — right after the engine phase (and its contiguous paths),
+   with its weights and prompts: the serving front end through the
+   launcher's entry points (``repro_torch.launch.serve``).  The HTTP
+   smoke (``start_smoke_server`` and ``_http_smoke``: SSE chunks and
+   [DONE], an offline /v1/batches job that completes while the one
+   active slot is held, 429 with Retry-After once the queue is full,
+   /metrics as Prometheus text) against two SiPipeEngine replicas behind
+   the least-loaded-KV router, monolithic prefill, each warmed by one
+   short request; a non-streamed greedy completion of one prompt, sent
+   alone, must equal ``SiPipeEngine.run()`` on that prompt alone; then
+   an online replay (``run_online``: 16 Poisson arrivals at 8
+   requests/s, 32 sampled tokens, every 5th aborted after its first
+   token, 4 offline requests, 256-token chunks) under a 120 s deadline,
+   whose accounting must hold.  The launch counters are read over two
+   windows: the HTTP server's traffic, where the decode and flash
+   kernels (rows 2, 3) must launch, and the online replay, where the
+   span and decode kernels (rows 1, 2) must; warm-ups and the engine run
+   the greedy check compares with are counted in neither.  Every stage
+   of both replicas must replay a decode graph, and both replicas must
+   drain to an empty ``load()``.  It prints TTFT, TPOT and queue delay
+   (mean, p99), the offline tier's figures and the 429 count.
 
 Every engine path (4, 5, 6) runs its decode steps as CUDA graphs, the
 engine's default on the card (``core/step_graphs.py``): each stage must
@@ -146,9 +167,10 @@ both are printed.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  ``--phases`` runs a
-subset (engine and whisper need kernels, mixtral needs rolling,
-contiguous needs both, fused needs none; its engine runs follow the
-engine and mixtral phases when they run) and prints no result line.
+subset (engine and whisper need kernels, serving needs kernels and
+engine, mixtral needs rolling, contiguous needs both, fused needs none;
+its engine runs follow the engine and mixtral phases when they run) and
+prints no result line.
 
 The int8 monolithic and chunked streams are compared, not required to
 be equal: monolithic prefill attends full-precision K/V and chunks the
@@ -1817,6 +1839,175 @@ def phase_engine(dev, gen, kernels, card):
     return params, prompts, paged
 
 
+SERVING_DEADLINE_S = 120.0   # the online replay fails, not hangs, past it
+SERVING_ROWS = ("paged_span_attention", "paged_decode_attention",
+                "flash_attention")   # PERF.md rows 1, 2, 3
+
+
+def _latency(m, prefix=""):
+    """TTFT, TPOT and queue delay, mean and p99, of engine metrics ``m``
+    (``prefix`` "offline_" reads the offline tier's)."""
+    keys = (("TTFT", "ttft"), ("TPOT", "tpot")) + (
+        () if prefix else (("queue", "queue"),))
+    return ", ".join(
+        f"{label} mean {m[f'{prefix}{k}_mean_s'] * 1e3:.2f} ms p99 "
+        f"{m[f'{prefix}{k}_p99_s'] * 1e3:.2f} ms" for label, k in keys)
+
+
+def phase_serving(kernels, card, params, prompts):
+    """The serving front end (``repro_torch.serving`` through the
+    launcher's entry points) on full-width stablelm-1.6b, with the engine
+    phase's weights and prompts: (a) the launcher's HTTP smoke
+    (``serve.start_smoke_server`` and ``serve._http_smoke``) against two
+    warmed SiPipeEngine replicas behind the router (monolithic prefill,
+    one active slot, a queue of one); (b) a non-streamed greedy completion
+    of one prompt, sent alone to that server, must equal
+    ``SiPipeEngine.run()`` on that prompt alone (both at batch 1:
+    bit-equal); (c) an online replay (``run_online``, one engine): 16
+    Poisson arrivals at 8 requests/s of 32 sampled tokens, every 5th
+    aborted after its first token, 4 offline requests, 256-token chunks
+    over the paged cache, under a deadline. The launch counters are set to
+    0 just before and read just after each of two windows: the HTTP
+    server's traffic (a and b, until its replicas have drained), where
+    rows 2 and 3 must launch, and the online replay, where rows 1 and 2
+    must; the replicas' warm-ups and the engine run that (b) compares
+    with lie outside both. Every stage of both replicas must replay a
+    decode graph, and each replica must drain to an empty ``load()``."""
+    import http.client
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EngineConfig, SiPipeEngine
+    from repro_torch.core.sampling_params import SamplingParams
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("stablelm-1.6b")
+    prebuilt = (cfg, build_model(cfg), params)
+    t_phase = time.monotonic()
+
+    def zero():
+        gc.collect()
+        torch.cuda.synchronize()
+        for k, _ in kernels:
+            k.launches = 0
+
+    def window(label, need):
+        launches = {e["name"]: k.launches for k, e in kernels}
+        shown = {n: launches[n] for n in SERVING_ROWS}
+        print(f"serving {label}: launches {shown}", flush=True)
+        for name in need:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched in the serving "
+                                     f"phase's {label}")
+
+    # the engine alone, for (b): outside every counted window
+    prompt = prompts[0]
+    eng = SiPipeEngine(prebuilt[1], params, EngineConfig(
+        pp_degree=2, max_batch=4, max_seq_len=640, seed=SEED))
+    eng.add_request(prompt, SamplingParams(greedy=True, max_new_tokens=32))
+    alone = list(eng.run()[0].output_ids)
+    del eng
+
+    # (a) + (b): two replicas behind the router, warmed before the window
+    server, gate = serve.start_smoke_server(
+        cfg.name, replicas=2, max_seq_len=640, chunk_tokens=0, seed=SEED,
+        prebuilt=prebuilt)
+    zero()
+    host, port = server.address
+    t0 = time.monotonic()
+    serve._http_smoke(host, port, gate)
+    smoke_s = time.monotonic() - t0
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    conn.request("POST", "/v1/completions", json.dumps({
+        "prompt": prompt, "max_tokens": 32, "temperature": 0.0}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"greedy completion: HTTP {resp.status} {body}")
+    over_http = body["choices"][0]["token_ids"]
+    rejected = server.admission.snapshot()["admission_rejected_total"]
+    replicas = server.router.replicas
+    routed = dict(server.router.routed)
+    server.close()                  # drains every replica, then stops it
+    print(f"serving: HTTP smoke OK on {len(replicas)} warmed replicas in "
+          f"{smoke_s:.3f}s (SSE chunks and [DONE], a /v1/batches job under "
+          f"the held slot, 429 with Retry-After, /metrics); 429s "
+          f"{rejected}; routed {routed}", flush=True)
+    window("HTTP server (smoke and greedy, warm-ups excluded)",
+           ("paged_decode_attention", "flash_attention"))
+    for rep in replicas:
+        m, load = rep.engine.metrics(), rep.engine.load()
+        replays = [x["graph_replays"] for x in m["stages"]]
+        print(f"serving replica {rep.name}: {m['requests_finished']} "
+              f"finished, {_latency(m)}; offline "
+              f"{m['offline_requests_seen']} seen, {_latency(m, 'offline_')}"
+              f", slack tokens sold {m['slack_tokens_sold']}; decode graphs "
+              f"per stage {[x['graphs'] for x in m['stages']]}, replays "
+              f"{replays}; load after the drain {load}", flush=True)
+        if rep.error is not None:
+            raise AssertionError(f"replica {rep.name} failed: {rep.error!r}")
+        if min(replays) <= 0:
+            raise AssertionError(f"replica {rep.name}: a stage replayed no "
+                                 f"decode graph: {replays}")
+        if load["active_requests"] or \
+                load["kv_blocks_free"] != load["kv_blocks_total"]:
+            raise AssertionError(f"replica {rep.name} did not drain: {load}")
+    del replicas, server
+    print(f"serving: greedy over HTTP == SiPipeEngine alone: "
+          f"{over_http == alone} ({len(over_http)} tokens after a "
+          f"{len(prompt)}-token prompt: {over_http[:8]}...)", flush=True)
+    if over_http != alone:
+        raise AssertionError(f"greedy over HTTP {over_http} differs from "
+                             f"the engine's {alone}")
+
+    # (c) the online replay, on its own thread so that a stall fails the
+    # phase at the deadline instead of hanging the script
+    result = {}
+
+    def replay():
+        try:
+            result["m"] = serve.run_online(
+                cfg.name, requests=16, max_new_tokens=32, max_seq_len=640,
+                chunk_tokens=256, policy="chunked", kv_layout="paged",
+                arrival_rate=8.0, abort_every=5, offline_requests=4,
+                seed=SEED, verbose=False, prebuilt=prebuilt)
+        except BaseException as e:          # noqa: BLE001 — re-raised below
+            result["error"] = e
+
+    zero()
+    t0 = time.monotonic()
+    worker = threading.Thread(target=replay, name="online-replay",
+                              daemon=True)
+    worker.start()
+    worker.join(SERVING_DEADLINE_S)
+    if worker.is_alive():
+        raise AssertionError(f"the online replay did not finish within "
+                             f"{SERVING_DEADLINE_S:.0f}s")
+    if "error" in result:
+        raise result["error"]
+    m = result["m"]
+    print(f"serving online: {m['finished'] + m['aborted']} requests at "
+          f"{m['arrival_rate_rps']} rps in "
+          f"{time.monotonic() - t0:.3f}s: {m['finished']} finished, "
+          f"{m['aborted']} aborted, offline {m['offline_finished']}/"
+          f"{m['offline_submitted']} finished "
+          f"({m['offline_streamed_tokens']} tokens), "
+          f"{m['streamed_tokens']} online tokens; {_latency(m)}; offline "
+          f"{_latency(m, 'offline_')}, slack tokens sold "
+          f"{m['slack_tokens_sold']} of {m['slack_seats_seen']} seats, "
+          f"offline preemptions {m['offline_preemptions']}; throughput "
+          f"{m['throughput_tok_s']:.2f} tok/s; decode graphs per stage "
+          f"{[x['graphs'] for x in m['stages']]}, replays "
+          f"{[x['graph_replays'] for x in m['stages']]}", flush=True)
+    window("online replay", ("paged_span_attention",
+                             "paged_decode_attention"))
+    print(f"serving: phase {time.monotonic() - t_phase:.1f}s on {card}",
+          flush=True)
+
+
 def phase_mixtral(dev, kernels, card):
     """mixtral-8x7b at its published widths (8 experts top-2, W = 4096),
     cut to the depth one card holds, through SiPipeEngine (pp = 2, paged rolling
@@ -2540,8 +2731,8 @@ def phase_fused(dev, card):
     return results
 
 
-PHASES = ("kernels", "rolling", "engine", "mixtral", "contiguous", "reference",
-          "whisper", "fused")
+PHASES = ("kernels", "rolling", "engine", "serving", "mixtral", "contiguous",
+          "reference", "whisper", "fused")
 
 
 def main(argv=None) -> int:
@@ -2555,6 +2746,8 @@ def main(argv=None) -> int:
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if "serving" in phases and not {"kernels", "engine"} <= set(phases):
+        ap.error("the serving phase needs the kernels and engine phases")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2587,6 +2780,8 @@ def main(argv=None) -> int:
         held = phase_engine(dev, gen, kernels, card)
         if contiguous:
             phase_contiguous_dense(kernels, card, *held)
+        if "serving" in phases:
+            phase_serving(kernels, card, *held[:2])
         del held
     if "mixtral" in phases:
         held = phase_mixtral(dev, kernels, card)

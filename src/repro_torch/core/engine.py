@@ -1186,6 +1186,30 @@ class PPEngineBase:
                     f"iteration {sched.iteration} never completed")
             time.sleep(0.0005)
 
+    def load(self) -> Dict[str, int]:
+        """Cheap load snapshot for routing decisions (serving/router.py):
+        live request count, waiting-queue depth, and KV block occupancy.
+        Unlike :meth:`metrics` this allocates nothing proportional to
+        history — safe to poll per-request.  Host counters only: it never
+        touches the device, so the router's and the HTTP handlers' threads
+        may poll it while a stage captures a graph."""
+        if self.paged:
+            total = self.kv_manager.n_blocks
+            free = (self.kv_manager.free_blocks
+                    + self.kv_manager.reclaimable_cached_blocks)
+        else:
+            total = self.seq_cache.max_rows
+            free = self.seq_cache.free_rows
+        return {
+            "active_requests": len(self.requests),
+            # online waiting only — the router balances SLO traffic; the
+            # offline backlog is reported separately so it never repels
+            # online placements from an engine with deep batch work
+            "queue_depth": len(self.scheduler.waiting),
+            "offline_queue_depth": len(self.scheduler.waiting_offline),
+            "kv_blocks_total": total,
+            "kv_blocks_free": free,
+        }
 
     def metrics(self) -> Dict[str, Any]:
         t_end = max([self._t_last_done, *list(self.iter_done_t.values())]) \

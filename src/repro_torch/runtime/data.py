@@ -37,3 +37,19 @@ class ShareGPTLike:
             prompt = rng.integers(2, self.vocab_size, size=pl).tolist()
             out.append((prompt, ol))
         return out
+
+    def arrivals(self, rate_rps: float) -> List[Tuple[float, List[int], int]]:
+        """Poisson arrival process over :meth:`requests`: exponential
+        inter-arrival gaps at ``rate_rps`` requests/second, deterministic
+        by seed.  Returns ``[(t_arrival_s, prompt_ids, max_new_tokens)]``
+        sorted by arrival time — the online serving replay format
+        (``serve.py --online``)."""
+        if rate_rps <= 0:
+            raise ValueError(f"arrival rate must be positive, got {rate_rps}")
+        rng = np.random.default_rng((self.seed, 0xA881))
+        t = 0.0
+        out = []
+        for prompt, budget in self.requests():
+            t += float(rng.exponential(1.0 / rate_rps))
+            out.append((t, prompt, budget))
+        return out

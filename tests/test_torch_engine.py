@@ -314,6 +314,12 @@ def test_entry_points_default_to_cuda_and_refuse_the_cpu_silently(
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run(ARCH, chunk_tokens=8, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run_online(ARCH, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_http_server(ARCH)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run_http(ARCH, smoke=True)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -350,9 +356,10 @@ def test_port_runs_without_jax_or_the_reference():
     """``import repro_torch`` and CPU engine runs (chunked, monolithic,
     and monolithic then chunked over the int8 cache; mixtral-8x7b-smoke,
     windowed MoE, chunked and monolithic), whisper-small-smoke's
-    prefill and decode through the model API, and both fused ops of
-    ``repro_torch.kernels.ops``, load neither ``jax`` nor any module of
-    ``repro``."""
+    prefill and decode through the model API, both fused ops of
+    ``repro_torch.kernels.ops``, the launcher's HTTP smoke (the serving
+    front end over a real engine) and an online replay with aborts and an
+    offline request, load neither ``jax`` nor any module of ``repro``."""
     code = (
         "import sys\n"
         "from repro_torch.configs import get_config\n"
@@ -398,6 +405,12 @@ def test_port_runs_without_jax_or_the_reference():
         "y = ops.swiglu_fused(x, w, w, w.T.contiguous())\n"
         "z = ops.rmsnorm_matmul_fused(x, x[0, 0], w)\n"
         "assert y.shape == (2, 3, 32) and z.shape == (2, 3, 48)\n"
+        f"assert serve.run_http('{ARCH}', smoke=True, device='cpu',"
+        " max_seq_len=64) == 0\n"
+        f"m = serve.run_online('{ARCH}', requests=4, max_new_tokens=4,"
+        " abort_every=2, offline_requests=1, arrival_rate=100.0,"
+        " device='cpu', verbose=False)\n"
+        "assert m['aborted'] >= 1 and m['offline_finished'] == 1, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
