@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,serving,mixtral,contiguous,reference,whisper,fused]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,serving,mixtral,configs,contiguous,reference,whisper,fused]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -30,7 +30,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    call computes the function, and the back-to-back ``call_ms``).  The flash
    kernel's extra held cases (``SEED + 12``): causal at S = 64 and 65 (one
    tile, one tile and a row), and glm4-9b's widths (H 32, Kv 2, hd 128: g
-   16) at S 397.  The int8 decode kernels (here and in 3 and
+   16) at S 397.  Then rows 1, 7, 2, 2b and 3 again at llama4-maverick's
+   widths (H 40, Kv 8, hd 128: g 5, no power of two; a tiled block holds
+   12 tokens x 5 heads and 4 idle rows), held and timed beside SDPA with
+   ``enable_gqa`` and their bounds as the kernels line's ``<name>_g5``
+   entries (rows 6 and 8 likewise in 3, rows 9-12 in 6).  The int8
+   decode kernels (here and in 3 and
    6) are held to the limit plus ``kernels/_paged.py``'s flip term (one
    quantized-probability step at each slot on a rounding boundary), on
    their cases and on QUANT_DRAWS extra draws of their own; where the
@@ -65,6 +70,26 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    every request must finish, its kernels must have launched, and a
    2-request run (one prompt over W, one request per microbatch) must
    give SiPipe's greedy streams equal to NaivePPEngine's.
+5b. configs — right after the mixtral phase: the other architectures the
+   engine serves, each built on the card from SEED and freed before the
+   next (the allocated GiB printed before each build):
+   llama4-maverick-400b-a17b at its published widths (128 experts top-1
+   with a shared expert, every other layer; H 40 over Kv 8: g 5) cut to
+   4 of its 48 layers (``repro_torch.configs.llama4_maverick_400b_a17b.
+   ONE_CARD_LAYERS``: 4 are ~70 GB of bf16 weights), then glm4-9b (40
+   layers, H 32 over Kv 2: g 16), codeqwen1.5-7b (32 layers) and
+   minicpm-2b (40 layers, vocab 122753) at full depth.  Each path serves 8
+   greedy requests of 64-512 prompt tokens and 32 new through
+   SiPipeEngine (pp = 2, paged KV): every request must finish, the path's
+   kernels must launch, every stage must replay its decode graphs and
+   every KV block must be free at the end; then a 2-request pair, one
+   request per microbatch, where SiPipe's schedule and greedy streams
+   must equal NaivePPEngine's.  glm4-9b and llama4 run chunked (256-token
+   chunks) and monolithic, in bf16 and with the int8 cache; codeqwen
+   chunked and minicpm monolithic in bf16; llama4 also monolithic with
+   its shared expert fused into the MoE sum (``fuse_shared_expert``),
+   whose pair streams must equal the separate branch's.  llama4's
+   launches are those of the g 5 entries below.
 6. contiguous — the contiguous KV layout (one cache row per sequence):
    first its kernels, over [R, S, Kv, hd] rows read out of order, checked
    and timed as in 2 and 3 (rows 9-12 of PERF.md's kernel table and the
@@ -151,7 +176,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    drain to an empty ``load()``.  It prints TTFT, TPOT and queue delay
    (mean, p99), the offline tier's figures and the 429 count.
 
-Every engine path (4, 5, 6) runs its decode steps as CUDA graphs, the
+Every engine path (4, 5, 5b, 6) runs its decode steps as CUDA graphs, the
 engine's default on the card (``core/step_graphs.py``): each stage must
 hold exactly one graph per decode shape (batch, table width) the path
 scheduled and must have replayed it; each path prints its graphs per
@@ -166,9 +191,10 @@ both are printed.
 
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits with code 2 and prints no result.  ``--phases`` runs a
-subset (engine and whisper need kernels, serving needs kernels and
-engine, mixtral needs rolling, contiguous needs both, fused needs none;
+device it exits with code 2 and prints no result.  Each phase prints its
+seconds.  ``--phases`` runs a subset (engine, configs and whisper need
+kernels, serving needs kernels and engine, mixtral needs rolling,
+contiguous needs both, fused needs none;
 its engine runs follow the engine and mixtral phases when they run) and
 prints no result line.
 
@@ -526,6 +552,197 @@ def _flash_cases(dev):
     return err
 
 
+# llama4-maverick's attention widths: H 40 over Kv 8, hd 128.  g = 5 is no
+# power of two: a tiled body's 64-row block holds 12 tokens (or positions)
+# x 5 heads and 4 idle rows (csrc/tiled_primitives.cuh, tiled::Group)
+G5 = (40, 8, 128)
+G5_SPANS = [(0, 96), (200, 64), (448, 64), (120, 32)]   # the kernels phase's
+G5_ROLLING = [(100, 64), (4050, 64), (4500, 64), (9000, 64)]  # rolling's
+
+
+def _g5_entry(name, kernel, plain, args, label, bound, src, replaces, card,
+              sdpa=None, kw=None, quant_decode=False):
+    """A kernel at g 5 (``G5``), held against its plain version with the
+    tolerance of its main shape (the int8 decode mode with its flip term),
+    then timed on the device beside its plain version, its bound and, where
+    one call computes the function, SDPA with ``enable_gqa`` (``sdpa``):
+    the kernels line's entry ``<name>_g5``, whose launches the configs
+    phase's llama4-maverick paths fill in.  These launches do not count."""
+    kw = kw or {}
+    text = f"g 5 (H={G5[0]} Kv={G5[1]} hd={G5[2]}) {label}"
+    if quant_decode:
+        err = _held_quant_decode(name, kernel, plain, args, text)
+    else:
+        err = _held(name, kernel, plain, args, text, **kw)
+    plain_ms = _time_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+    fn = lambda: kernel(*args, **kw)
+    if sdpa is None:
+        ms, call_ms = _device_ms(kernel, fn), _kernel_ms(kernel, fn)
+        lib_ms = None
+    else:
+        ms, call_ms, lib_ms = _tiled_times(kernel, fn, sdpa)
+    return kernel, _entry(f"{name}_g5", src, replaces, err, ms, plain_ms,
+                          bound, lib_ms, card, call_ms)
+
+
+def _g5_kernels(dev, card):
+    """Rows 1, 7, 2, 2b and 3 at g 5 on the kernels phase's main shapes:
+    the 256-token chunk over 4 ragged rows (16-slot pages; row 7 at the
+    engine's 512-slot p-tile), a decode batch of 8 with contexts of
+    100-1000, and the prefill of 4 prompts of S = 397, drawn from a
+    generator of their own."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import span_attention as ksa
+    gen = np.random.default_rng(SEED + 15)
+    h, kv, hd = G5
+    sdpa = F.scaled_dot_product_attention
+    seq = np.concatenate([np.full(n, r) for r, (_, n) in enumerate(G5_SPANS)])
+    pos = np.concatenate([o + np.arange(n) for o, n in G5_SPANS])
+    out = []
+    case = _paged_case(gen, pos, seq, len(G5_SPANS), h, kv, hd, 16, dev)
+    q4, k4, v4, m4 = _sdpa_args(case, h, hd, False)
+    out.append(_g5_entry(
+        "paged_span_attention", ksa.paged_span_attention,
+        ksa.paged_span_attention_plain,
+        [case["q"], case["k"], case["v"], case["tables"], case["positions"],
+         case["rows"]], "256-token chunk over 4 rows", _bound(case, h, hd),
+        "src/repro_torch/csrc/paged_span_attention.cu",
+        "src/repro/kernels/span_attention.py:611", card,
+        sdpa=lambda: sdpa(q4, k4, v4, attn_mask=m4, enable_gqa=True)))
+    out.append(_g5_entry(
+        "paged_span_attention_quant", ksa.paged_span_attention_quant,
+        ksa.paged_span_attention_quant_plain, _quant(case) + [case["rows"]],
+        "256-token chunk over 4 rows, p-tile=512",
+        _bound(case, h, hd, quant=True),
+        "src/repro_torch/csrc/paged_span_attention_quant.cu",
+        "src/repro/kernels/span_attention.py:656", card,
+        kw={"kv_block": 512}))
+    dec = _paged_case(gen, gen.integers(100, 1001, 8) - 1, np.arange(8), 8,
+                      h, kv, hd, 16, dev)
+    q4, k4, v4, m4 = _sdpa_args(dec, h, hd, True)
+    out.append(_g5_entry(
+        "paged_decode_attention", kda.paged_decode_attention,
+        kda.paged_decode_attention_plain,
+        [dec["q"], dec["k"], dec["v"], dec["tables"], dec["positions"]],
+        "B=8 contexts 100-1000", _bound(dec, h, hd),
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:72", card,
+        sdpa=lambda: sdpa(q4, k4, v4, attn_mask=m4, enable_gqa=True)))
+    out.append(_g5_entry(
+        "paged_decode_attention_quant", kda.paged_decode_attention_quant,
+        kda.paged_decode_attention_quant_plain, _quant(dec),
+        "B=8 contexts 100-1000", _bound(dec, h, hd, quant=True),
+        "src/repro_torch/csrc/decode_attention_quant.cu",
+        "src/repro/models/attention.py:553 (jnp decode_attention_quant; "
+        "no Pallas kernel)", card, quant_decode=True))
+    b, s = 4, 397
+    q, k, v = (torch.tensor(gen.standard_normal((b, s, n, hd), np.float32),
+                            device=dev).to(torch.bfloat16)
+               for n in (h, kv, kv))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out.append(_g5_entry(
+        "flash_attention", kfa.flash_attention, kfa.flash_attention_plain,
+        [q, k, v, torch.arange(s, dtype=torch.int32, device=dev)],
+        f"B={b} S={s}", _flash_bound(b, s, s, h, kv, hd, s * (s + 1) // 2),
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:80", card,
+        sdpa=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    return out
+
+
+def _g5_span_kernels(dev, card, layout):
+    """The span kernels at g 5 on their phase's main steps: ``paged``, rows
+    6 and 8 (the rolling phase's 256-token step over 4 rows at W = 4096,
+    16-slot pages); ``rows``, rows 9 and 10 (the kernels phase's chunk over
+    rows of S = 640) and 11 and 12 (the rolling step over rows of W).  Each
+    rolling row also holds at W = 64 with bucket padding (every row
+    wrapped)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import span_attention as ksa
+    from repro_torch.models.attention import quantize_kv
+    gen = np.random.default_rng(SEED + (16 if layout == "paged" else 17))
+    h, kv, hd = G5
+    sdpa = F.scaled_dot_product_attention
+    quant = lambda c: [*quantize_kv(c["k"]), *quantize_kv(c["v"])]
+    row_perm = gen.permutation(ROWS)
+    out = []
+    if layout == "rows":
+        seq = np.concatenate([np.full(n, r)
+                              for r, (_, n) in enumerate(G5_SPANS)])
+        pos = np.concatenate([o + np.arange(n) for o, n in G5_SPANS])
+        case = _row_case(gen, pos, seq, [5, 2, 7, 0], 640, h, kv, hd, dev)
+        q4, k4, v4, m4 = _sdpa_args(case, h, hd, False,
+                                    views=_row_views(case))
+        index = [case["positions"], case["rows"]]
+        out.append(_g5_entry(
+            "span_attention", ksa.span_attention, ksa.span_attention_plain,
+            [case["q"], case["k"], case["v"], *index],
+            "256-token chunk over 4 rows of S=640", _bound(case, h, hd),
+            "src/repro_torch/csrc/span_attention.cu",
+            "src/repro/kernels/span_attention.py:132", card,
+            sdpa=lambda: sdpa(q4, k4, v4, attn_mask=m4, enable_gqa=True)))
+        out.append(_g5_entry(
+            "span_attention_quant", ksa.span_attention_quant,
+            ksa.span_attention_quant_plain, [case["q"], *quant(case), *index],
+            "256-token chunk over 4 rows of S=640, p-tile=512",
+            _bound(case, h, hd, quant=True),
+            "src/repro_torch/csrc/span_attention_quant.cu",
+            "src/repro/kernels/span_attention.py:239", card))
+    specs = ((("paged_span_attention_rolling",
+               ksa.paged_span_attention_rolling,
+               ksa.paged_span_attention_rolling_plain, False,
+               "src/repro_torch/csrc/paged_span_attention_rolling.cu",
+               "src/repro/kernels/span_attention.py:703"),
+              ("paged_span_attention_rolling_quant",
+               ksa.paged_span_attention_rolling_quant,
+               ksa.paged_span_attention_rolling_quant_plain, True,
+               "src/repro_torch/csrc/paged_span_attention_rolling_quant.cu",
+               "src/repro/kernels/span_attention.py:761"))
+             if layout == "paged" else
+             (("span_attention_rolling", ksa.span_attention_rolling,
+               ksa.span_attention_rolling_plain, False,
+               "src/repro_torch/csrc/span_attention_rolling.cu",
+               "src/repro/kernels/span_attention.py:519"),
+              ("span_attention_rolling_quant",
+               ksa.span_attention_rolling_quant,
+               ksa.span_attention_rolling_quant_plain, True,
+               "src/repro_torch/csrc/span_attention_rolling_quant.cu",
+               "src/repro/kernels/span_attention.py:456")))
+    for name, kernel, plain, q8, src, replaces in specs:
+        for window, spans, pad in ((64, G5_ROLLING[:3] + [(9000, 60)], 4),
+                                   (4096, G5_ROLLING, 0)):
+            if layout == "paged":
+                case = _rolling_case(gen, spans, window, h, kv, hd, 16, dev,
+                                     pad)
+                index = [case["tables"], case["positions"], case["rows"]]
+                views = None
+            else:
+                case = _row_rolling_case(gen, spans, window, row_perm, h, kv,
+                                         hd, dev, pad)
+                index = [case["positions"], case["rows"]]
+                views = _row_views(case)
+            cache = quant(case) if q8 else [case["k"], case["v"]]
+            args = [case["q"], *cache, case["k_span"], case["v_span"],
+                    *index, case["offsets"], case["n_valid"]]
+            label = (f"W={window} T={case['q'].shape[0]} "
+                     f"n_valid={case['n_valid']}")
+            if window == 64:
+                _held(name, kernel, plain, args,
+                      f"g 5 (H={h} Kv={kv} hd={hd}) {label}", window=64)
+                continue
+            q4 = None if q8 else _rolling_sdpa_args(case, h, hd, views=views)
+            out.append(_g5_entry(
+                name, kernel, plain, args, label,
+                _rolling_bound(case, h, hd, q8), src, replaces, card,
+                sdpa=None if q8 else (lambda: sdpa(*q4[:3], attn_mask=q4[3],
+                                                   enable_gqa=True)),
+                kw={"window": window}))
+    return out
+
+
 def phase_kernels(dev, gen, card):
     import torch
     import torch.nn.functional as F
@@ -673,7 +890,7 @@ def phase_kernels(dev, gen, card):
         kda.paged_decode_attention_quant_plain,
         lambda g: _quant(_paged_case(g, g.integers(100, 1001, 8) - 1,
                                      np.arange(8), 8, h, h, hd, bs, dev)))
-    return results
+    return results + _g5_kernels(dev, card)
 
 
 def _rolling_case(gen, spans, window, h, kv, hd, bs, dev, pad=0):
@@ -1021,7 +1238,7 @@ def phase_rolling_kernels(dev, card):
                        _roofline(n_bytes, 4 * hd * h * b * pairs), lib_ms,
                        card, call_ms)
     results.append((kfa.flash_attention, entry))
-    return results
+    return results + _g5_span_kernels(dev, card, "paged")
 
 
 ROWS = 8        # cache rows of the kernel checks' contiguous caches
@@ -1309,7 +1526,7 @@ def phase_contiguous_kernels(dev, card):
         4096)
     _split_decode_cases(dev)
     _quant_split_cases(dev)
-    return results
+    return results + _g5_span_kernels(dev, card, "rows")
 
 
 def _split_decode_cases(dev):
@@ -1615,6 +1832,9 @@ def _serve(engine_cls, model, params, prompts, sp, chunk, kernels,
     ``decode_shapes``, those shapes."""
     import torch
     gc.collect()        # the previous run's engine (its threads hold cycles)
+    # a stage's graphs allocate from their own pool, which cannot take the
+    # blocks the caching allocator keeps from earlier eager work
+    torch.cuda.empty_cache()
     eng = _engine(engine_cls, params, model, chunk, max_seq_len, max_batch,
                   kv_layout, cuda_graphs)
     if logits is not None:
@@ -2054,39 +2274,49 @@ def phase_mixtral(dev, kernels, card):
             ("mixtral int8 monolithic", ModelOptions(kv_quant=True), None,
              ("flash_attention_windowed",
               "paged_decode_attention_quant_rolling"))):
-        paged[label] = _mixtral_path(label, build_model(cfg, opts), params,
-                                     prompts, pair, chunk, names, kernels,
-                                     card,
-                                     twin=label == "mixtral int8 monolithic")
+        paged[label] = _model_path(label, build_model(cfg, opts), params,
+                                   prompts, pair, chunk, names, kernels, card,
+                                   max_seq_len=5120,
+                                   twin=label == "mixtral int8 monolithic")
     return cfg, params, prompts, pair, paged
 
 
-def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
-                  card, kv_layout="auto", must_not_launch=(), twin=False):
-    """One mixtral path: 8 greedy requests through SiPipeEngine (every one
-    must finish, ``names`` must launch and ``must_not_launch`` must not),
-    then ``pair`` with one request per microbatch, so that each step's
+def _model_path(label, model, params, prompts, pair, chunk, names, kernels,
+                card, max_seq_len=640, kv_layout="auto", must_not_launch=(),
+                twin=False, entry_suffix=""):
+    """One engine path of a model: 8 greedy requests through SiPipeEngine
+    (every one must finish with 32 tokens, ``names`` must launch and
+    ``must_not_launch`` must not, every stage must replay its decode
+    graphs, and a paged cache must end with every block free), then
+    ``pair`` with one request per microbatch, so that each step's
     composition (which an MoE's capacity and the bucket padding see)
     cannot depend on the overlapped engine's timing: SiPipe's schedule and
     greedy streams must equal NaivePPEngine's; with ``twin``, SiPipe's
-    pair run is checked against its eager twin too.  Returns the 8
-    streams, the pair's streams and the Naive pair run's logits."""
+    pair run is checked against its eager twin too.  The 8-request run's
+    launches fill in the kernels-line entries ``name + entry_suffix`` that
+    no earlier path filled.  Returns the 8 streams, the pair's streams,
+    the Naive pair run's logits and the 8-request run's metrics."""
     from repro_torch.core.engine import NaivePPEngine, SiPipeEngine
     from repro_torch.core.sampling_params import SamplingParams
     entries = {e["name"]: e for _, e in kernels}
     greedy = SamplingParams(greedy=True, max_new_tokens=32)
     greedy16 = SamplingParams(greedy=True, max_new_tokens=16)
     run = _serve(SiPipeEngine, model, params, prompts, greedy, chunk,
-                 kernels, max_seq_len=5120, kv_layout=kv_layout)
+                 kernels, max_seq_len=max_seq_len, kv_layout=kv_layout)
     launches = _report(label, prompts, run, card, 32, names, must_not_launch)
+    m = run[1]
+    if m.get("kv_blocks_free", 0) != m.get("kv_blocks_total", 0):  # paged
+        raise AssertionError(f"{label}: {m['kv_blocks_free']} of "
+                             f"{m['kv_blocks_total']} KV blocks free at "
+                             f"the end")
     for name in names:           # each entry: the first path that runs it
-        if not entries[name]["launches"]:
-            entries[name]["launches"] = launches[name]
+        if not entries[name + entry_suffix]["launches"]:
+            entries[name + entry_suffix]["launches"] = launches[name]
     traces, logits, sipipe_logits = ([], []), [], []
 
     def pair_run(cls, trace=None, lg=None, cuda_graphs=None):
         return _serve(cls, model, params, pair, greedy16, chunk, kernels,
-                      max_seq_len=5120, max_batch=1, trace=trace,
+                      max_seq_len=max_seq_len, max_batch=1, trace=trace,
                       kv_layout=kv_layout, logits=lg, cuda_graphs=cuda_graphs)
     runs = [pair_run(cls, tr, lg) for cls, tr, lg in zip(
         (SiPipeEngine, NaivePPEngine), traces, (sipipe_logits, logits))]
@@ -2104,7 +2334,105 @@ def _mixtral_path(label, model, params, prompts, pair, chunk, names, kernels,
         _twin(f"{label} 2-request", runs[0],
               pair_run(SiPipeEngine, lg=eager_logits, cuda_graphs=False),
               sipipe_logits, eager_logits)
-    return dict(streams=run[0], pair=a, logits=logits)
+    return dict(streams=run[0], pair=a, logits=logits, metrics=m)
+
+
+# The configs phase: each architecture and its paths (label, int8 cache,
+# chunk tokens or None for monolithic prefill, the rows that must launch)
+_PATHS = (("chunked", False, 256,
+           ("paged_span_attention", "paged_decode_attention")),
+          ("monolithic", False, None,
+           ("flash_attention", "paged_decode_attention")),
+          ("int8 chunked", True, 256,
+           ("paged_span_attention_quant", "paged_decode_attention_quant")),
+          ("int8 monolithic", True, None,
+           ("flash_attention", "paged_decode_attention_quant")))
+CONFIG_PATHS = (("llama4-maverick-400b-a17b", _PATHS), ("glm4-9b", _PATHS),
+                ("codeqwen1.5-7b", _PATHS[:1]), ("minicpm-2b", _PATHS[1:2]))
+
+
+def phase_configs(dev, kernels, card):
+    """The architectures the engine serves beside stablelm and mixtral,
+    each built on the card from SEED one at a time and freed before the
+    next: llama4-maverick-400b-a17b first, the largest (~65 GiB), at its
+    published widths (128 experts top-1 and a shared expert; H 40 over Kv
+    8: g 5) cut to ``ONE_CARD_LAYERS`` of its 48 layers, then glm4-9b (Kv
+    2: g 16), codeqwen1.5-7b and minicpm-2b at full depth.  Each path as
+    :func:`_model_path` (8 greedy requests of 64-512 prompt tokens, then
+    SiPipe == Naive on a 2-request pair); llama4's launches fill in the g 5
+    entries.  llama4 also serves monolithic prefill in bf16 with its shared
+    expert fused into the MoE sum (``fuse_shared_expert``): the same
+    operations as the separate branch (tests/test_torch_configs.py holds
+    the two bit-equal in bf16), so its pair streams must equal that
+    path's."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama4_maverick_400b_a17b import ONE_CARD_LAYERS
+    from repro_torch.models.registry import ModelOptions, build_model
+    gen = np.random.default_rng(SEED + 5)
+    for arch, paths in CONFIG_PATHS:
+        t_arch = time.monotonic()
+        gc.collect()             # the previous model's engines and weights
+        # PyTorch keeps a cuBLAS workspace for every stream that ran a
+        # product, and each engine's stages run on streams of their own
+        getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        llama4 = arch.startswith("llama4")
+        cfg = (dataclasses.replace(full, num_layers=ONE_CARD_LAYERS)
+               if llama4 else full)
+        print(f"configs: {arch}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+              f" GiB allocated before the build", flush=True)
+        model = build_model(cfg)
+        t0 = time.monotonic()
+        params = model.init(SEED, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()         # the init's fp32 draws
+        g = cfg.num_heads // cfg.num_kv_heads
+        moe = ("" if cfg.moe is None else
+               f" experts={cfg.moe.num_experts} top-{cfg.moe.top_k} "
+               f"shared={cfg.moe.shared} every={cfg.moe.every} "
+               f"expert_d_ff={cfg.moe.expert_d_ff}")
+        print(f"engine: {cfg.name} L={cfg.num_layers} of {full.num_layers} "
+              f"d={cfg.d_model} H={cfg.num_heads} Kv={cfg.num_kv_heads} "
+              f"(g {g}) hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size}{moe}: init "
+              f"{time.monotonic() - t0:.1f}s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"on {card}", flush=True)
+        prompts = [gen.integers(2, cfg.vocab_size, int(n)).tolist()
+                   for n in gen.integers(64, 513, 8)]
+        pair = prompts[:2]
+        suffix = "_g5" if g == 5 else ""
+        runs = [(label, ModelOptions(kv_quant=quant), chunk, names)
+                for label, quant, chunk, names in paths]
+        if llama4:
+            runs.append(("monolithic fused shared expert",
+                         ModelOptions(fuse_shared_expert=True), None,
+                         _PATHS[1][3]))
+        pairs = {}
+        for label, opts, chunk, names in runs:
+            t0 = time.monotonic()
+            pairs[label] = _model_path(
+                f"{arch} {label}", build_model(cfg, opts), params, prompts,
+                pair, chunk, names, kernels, card,
+                entry_suffix=suffix)["pair"]
+            print(f"configs: {arch} {label}: {time.monotonic() - t0:.1f}s",
+                  flush=True)
+        if llama4:
+            same = (pairs["monolithic fused shared expert"]
+                    == pairs["monolithic"])
+            print(f"configs: {arch}: fused shared expert pair streams == the "
+                  f"separate branch's: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{arch}: the fused shared expert's "
+                                     f"streams differ from the separate "
+                                     f"branch's")
+        del params, model
+        print(f"configs: {arch}: {time.monotonic() - t_arch:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _logit_gap(a, b):
@@ -2242,11 +2570,11 @@ def phase_contiguous_mixtral(kernels, card, cfg, params, prompts, pair, paged):
             ("mixtral int8 chunked", ModelOptions(kv_quant=True), 256,
              ("span_attention_rolling_quant",
               "contiguous_decode_attention_quant_rolling"))):
-        got = _mixtral_path(f"contiguous {label}", build_model(cfg, opts),
-                            params, prompts, pair, chunk, names, kernels,
-                            card, kv_layout="contiguous",
-                            must_not_launch=not_paged,
-                            twin=label == "mixtral monolithic")
+        got = _model_path(f"contiguous {label}", build_model(cfg, opts),
+                          params, prompts, pair, chunk, names, kernels, card,
+                          max_seq_len=5120, kv_layout="contiguous",
+                          must_not_launch=not_paged,
+                          twin=label == "mixtral monolithic")
         quant = opts.kv_quant
         _layouts(f"contiguous {label} 2-request", got["pair"],
                  paged[label]["pair"], exact=not quant,
@@ -2731,8 +3059,8 @@ def phase_fused(dev, card):
     return results
 
 
-PHASES = ("kernels", "rolling", "engine", "serving", "mixtral", "contiguous",
-          "reference", "whisper", "fused")
+PHASES = ("kernels", "rolling", "engine", "serving", "mixtral", "configs",
+          "contiguous", "reference", "whisper", "fused")
 
 
 def main(argv=None) -> int:
@@ -2748,6 +3076,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if "serving" in phases and not {"kernels", "engine"} <= set(phases):
         ap.error("the serving phase needs the kernels and engine phases")
+    if "configs" in phases and "kernels" not in phases:
+        ap.error("the configs phase needs the kernels phase")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2766,36 +3096,50 @@ def main(argv=None) -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
+    def timed(name, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        gc.collect()
+        print(f"phase {name}: {time.monotonic() - t:.1f}s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+              f"allocated", flush=True)
+        return out
+
     kernels = []
     if "kernels" in phases:
-        kernels += phase_kernels(dev, gen, card)
+        kernels += timed("kernels", phase_kernels, dev, gen, card)
     if "rolling" in phases:
-        kernels += phase_rolling_kernels(dev, card)
+        kernels += timed("rolling", phase_rolling_kernels, dev, card)
     contiguous = "contiguous" in phases
     if contiguous:
-        kernels += phase_contiguous_kernels(dev, card)
+        kernels += timed("contiguous kernels", phase_contiguous_kernels, dev,
+                         card)
     # the contiguous paths reuse each model phase's weights and prompts
     # and compare with its paged streams, so they run right after it
     if "engine" in phases:
-        held = phase_engine(dev, gen, kernels, card)
+        held = timed("engine", phase_engine, dev, gen, kernels, card)
         if contiguous:
-            phase_contiguous_dense(kernels, card, *held)
+            timed("contiguous stablelm", phase_contiguous_dense, kernels,
+                  card, *held)
         if "serving" in phases:
-            phase_serving(kernels, card, *held[:2])
+            timed("serving", phase_serving, kernels, card, *held[:2])
         del held
     if "mixtral" in phases:
-        held = phase_mixtral(dev, kernels, card)
+        held = timed("mixtral", phase_mixtral, dev, kernels, card)
         if contiguous:
-            phase_contiguous_mixtral(kernels, card, *held)
+            timed("contiguous mixtral", phase_contiguous_mixtral, kernels,
+                  card, *held)
         del held
         gc.collect()
         torch.cuda.empty_cache()
+    if "configs" in phases:
+        timed("configs", phase_configs, dev, kernels, card)
     if "reference" in phases:
-        phase_reference(dev)
+        timed("reference", phase_reference, dev)
     if "whisper" in phases:
-        phase_whisper(dev, kernels, card)
+        timed("whisper", phase_whisper, dev, kernels, card)
     if "fused" in phases:
-        kernels += phase_fused(dev, card)
+        kernels += timed("fused", phase_fused, dev, card)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)
     print(card)
     print(json.dumps({"kernels": [e for _, e in kernels]}))

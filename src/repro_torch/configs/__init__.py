@@ -11,8 +11,12 @@ from typing import Dict, List
 from repro_torch.configs.base import ArchConfig, MoEConfig  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
-    "stablelm-1.6b": "stablelm_1_6b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "minicpm-2b": "minicpm_2b",
+    "glm4-9b": "glm4_9b",
     "whisper-small": "whisper_small",
 }
 

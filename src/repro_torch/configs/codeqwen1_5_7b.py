@@ -1,0 +1,20 @@
+"""codeqwen1.5-7b [dense] — qwen1.5 architecture.
+
+32L d_model=4096 32H (GQA kv=32) d_ff=13440 vocab=92416.
+[hf:Qwen/CodeQwen1.5-7B; hf]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=13440,
+    vocab_size=92_416,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/CodeQwen1.5-7B; hf",
+)

@@ -61,7 +61,8 @@
 //
 // Full-rate Hopper products (wgmma fed by TMA, warp specialisation) are
 // the step beyond this body.  Instantiated for hd in {16, 32, 64, 128};
-// g in {1, 2, 4, 8, 16} is a runtime shift.
+// g = H / Kv in 1..16 is a runtime tiled::Group (at g 5 a block is 12
+// positions x 5 heads, and its 4 other rows are idle).
 #include <climits>
 
 #include "tiled_primitives.cuh"
@@ -115,8 +116,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const int* __restrict__ q_pos, bf16* __restrict__ out,
-                       int Sq, int Skv, int H, int Kv, int lg, int causal,
-                       int window, float scale) {
+                       int Sq, int Skv, int H, int Kv, tiled::Group grp,
+                       int causal, int window, float scale) {
   using L = Layout<HD>;
   constexpr int LD = L::LD, CPS = HD / 8;
   extern __shared__ __align__(16) unsigned char flash_smem[];
@@ -127,14 +128,15 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int* misc = reinterpret_cast<int*>(flash_smem + L::MISC_OFF);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = 1 << lg, np = kRows >> lg;  // positions of a block
+  const int g = grp.g, np = grp.tq;         // positions of a block
   const int p0 = blockIdx.x * np, kh = blockIdx.y, b = blockIdx.z;
   const int cnt = min(np, Sq - p0);         // positions inside Sq
 
-  // the block's positions (causal) and their extent; -1 past Sq
+  // the block's positions (causal) and their extent; -1 past Sq and at
+  // the idle rows' index np (a g that is no power of two)
   if (warp == 0) {
     int pmin = INT_MAX, pmax = INT_MIN;
-    for (int j = lane; j < np; j += 32) {
+    for (int j = lane; j < kRows; j += 32) {
       int pos = -1;
       if (j < cnt) {
         pos = causal ? q_pos[p0 + j] : 0;
@@ -157,10 +159,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < kRows * CPS / kThreads; ++i) {
     const int c = tid + i * kThreads;
     const int m = c / CPS, ch = c - m * CPS;
-    const int j = m >> lg;
+    const int j = grp.token(m);
     const bool ok = j < cnt;
     const bf16* s =
-        ok ? q + (((size_t)b * Sq + p0 + j) * H + kh * g + (m & (g - 1))) *
+        ok ? q + (((size_t)b * Sq + p0 + j) * H + kh * g + grp.head(m)) *
                          HD +
                      ch * 8
            : q;
@@ -204,7 +206,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // this thread's row warp * 16 + lane / 4 + 8 * ri: its position, read
     // from shared memory on every tile rather than held in registers
     const auto row_mask = [&](int ri) {
-      const int rpos = tpos[(warp * 16 + (lane >> 2) + ri * 8) >> lg];
+      const int rpos = tpos[grp.token(warp * 16 + (lane >> 2) + ri * 8)];
       return [=](int n) {
         const int kp = s0 + n;
         return kp < Skv &&
@@ -225,10 +227,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const float den = fmaxf(lsum, 1e-30f);
     const int mrow = warp * 16 + (lane >> 2) + ri * 8;
-    const int j = mrow >> lg;
+    const int j = grp.token(mrow);
     if (j < cnt) {
       bf16* dst = out +
-                  (((size_t)b * Sq + p0 + j) * H + kh * g + (mrow & (g - 1))) *
+                  (((size_t)b * Sq + p0 + j) * H + kh * g + grp.head(mrow)) *
                       HD +
                   2 * (lane & 3);
 #pragma unroll
@@ -243,17 +245,16 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_pos, void* out, int B, int Sq, int Skv,
-                   int H, int Kv, int lg, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   int H, int Kv, tiled::Group grp, int causal, int window,
+                   float scale, cudaStream_t stream) {
   const size_t smem = Layout<HD>::BYTES;
   auto kernel = flash_attention_kernel<HD>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int np = kRows >> lg;
-  const dim3 grid((Sq + np - 1) / np, Kv, B);
+  const dim3 grid((Sq + grp.tq - 1) / grp.tq, Kv, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)q_pos,
-      (bf16*)out, Sq, Skv, H, Kv, lg, causal, window, scale);
+      (bf16*)out, Sq, Skv, H, Kv, grp, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -261,22 +262,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16, 16-byte aligned; q_pos [Sq]
 // int32 (read only when causal; may be null otherwise); out [B, Sq, H*hd]
-// bf16.  hd must be 16, 32, 64 or 128 and H / Kv one of 1, 2, 4, 8, 16; a
-// window needs the causal form.
+// bf16.  hd must be 16, 32, 64 or 128 and H / Kv in 1..16; a window needs
+// the causal form.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, void* out, int B, int Sq,
                                int Skv, int H, int Kv, int hd, int causal,
                                int window, float scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (!causal && window) return (int)cudaErrorInvalidValue;
-  const int lg = tiled::log2_group(H, Kv);
-  if (lg < 0 || Skv < 1) return (int)cudaErrorInvalidValue;
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (!grp.g || Skv < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
-    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
-    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
-    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, lg, causal, window, scale, s);
+    case 16: return (int)launch<16>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
+    case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
+    case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
+    case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

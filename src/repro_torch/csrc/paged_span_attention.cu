@@ -23,10 +23,10 @@ paged_span_attention_kernel(
     const tiled::bf16* __restrict__ q, const tiled::bf16* __restrict__ k_cache,
     const tiled::bf16* __restrict__ v_cache, const int* __restrict__ tables,
     const int* __restrict__ positions, const int* __restrict__ plan,
-    tiled::bf16* __restrict__ out, int T, int H, int Kv, int lg,
+    tiled::bf16* __restrict__ out, int T, int H, int Kv, tiled::Group grp,
     tiled::FastDiv bs, int B, int nb, int n_blocks, float scale) {
   extern __shared__ __align__(16) unsigned char span_smem[];
-  const int tq = tiled::kRows >> lg;
+  const int tq = grp.tq;
   const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, B, tq);
   if ((int)blockIdx.x >= *p.n_tiles) return;
   const int row = p.tiles[3 * blockIdx.x];
@@ -36,24 +36,25 @@ paged_span_attention_kernel(
   tiled::PagedRow src{k_cache, v_cache, tables + (size_t)row * nb, bs, Kv,
                       (int)blockIdx.y, n_blocks, stab};
   tiled::attend<HD, true>(src, q, nullptr, nullptr, positions, nullptr, plan,
-                          out, T, H, Kv, lg, B, w_slots, 0, T, scale,
+                          out, T, H, Kv, grp, B, w_slots, 0, T, scale,
                           span_smem);
 }
 
 template <int HD>
 static int launch(const void* q, const void* k_cache, const void* v_cache,
                   const void* tables, const void* positions, void* plan,
-                  void* out, int T, int H, int Kv, int lg, int bs, int B,
-                  int nb, int n_blocks, float scale, cudaStream_t stream) {
+                  void* out, int T, int H, int Kv, tiled::Group grp, int bs,
+                  int B, int nb, int n_blocks, float scale,
+                  cudaStream_t stream) {
   const size_t smem = tiled::Layout<HD>::bytes(nb * bs, 0, nb);
   auto kernel = paged_span_attention_kernel<HD>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiled::max_tiles(T, B, tiled::kRows >> lg), Kv);
+  const dim3 grid(tiled::max_tiles(T, B, grp.tq), Kv);
   kernel<<<grid, tiled::kThreads, smem, stream>>>(
       (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
       (const tiled::bf16*)v_cache, (const int*)tables, (const int*)positions,
-      (const int*)plan, (tiled::bf16*)out, T, H, Kv, lg, tiled::FastDiv(bs),
+      (const int*)plan, (tiled::bf16*)out, T, H, Kv, grp, tiled::FastDiv(bs),
       B, nb, n_blocks, scale);
   return (int)cudaGetLastError();
 }
@@ -61,25 +62,25 @@ static int launch(const void* q, const void* k_cache, const void* v_cache,
 // q [T, H, hd] bf16; caches [n_blocks, bs, Kv, hd] bf16 (the span already
 // written); tables [B, nb], positions/seq_idx [T] int32; plan: int32
 // workspace of plan_ints entries (tiled::plan_ints(T, B, 64 / g)); out
-// [T, H*hd] bf16.  H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}.
+// [T, H*hd] bf16.  H / Kv in 1..16, hd in {16, 32, 64, 128}.
 extern "C" int paged_span_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* tables, const void* positions, const void* seq_idx,
     void* plan, void* out, int T, int H, int Kv, int hd, int bs, int B,
     int nb, int n_blocks, long long plan_ints, float scale, void* stream) {
   if (T == 0) return 0;
-  const int lg = tiled::log2_group(H, Kv);
-  if (lg < 0 || B < 1 || nb < 1 || bs < 1 ||
-      plan_ints < tiled::plan_ints(T, B, tiled::kRows >> lg))
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (!grp.g || B < 1 || nb < 1 || bs < 1 ||
+      plan_ints < tiled::plan_ints(T, B, grp.tq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
-      (const int*)seq_idx, T, B, tiled::kRows >> lg, (int*)plan);
+      (const int*)seq_idx, T, B, grp.tq, (int*)plan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define SPAN_LAUNCH(HD)                                                     \
   return launch<HD>(q, k_cache, v_cache, tables, positions, plan, out, T, H, \
-                    Kv, lg, bs, B, nb, n_blocks, scale, s)
+                    Kv, grp, bs, B, nb, n_blocks, scale, s)
   switch (hd) {
     case 16: SPAN_LAUNCH(16);
     case 32: SPAN_LAUNCH(32);

@@ -37,10 +37,10 @@ paged_span_attention_rolling_kernel(
     const tiled::bf16* __restrict__ v_span, const int* __restrict__ tables,
     const int* __restrict__ positions, const int* __restrict__ offsets,
     const int* __restrict__ plan, tiled::bf16* __restrict__ out, int T, int H,
-    int Kv, int lg, tiled::FastDiv bs, int B, int nb, int n_blocks,
+    int Kv, tiled::Group grp, tiled::FastDiv bs, int B, int nb, int n_blocks,
     int window, int n_valid, float scale) {
   extern __shared__ __align__(16) unsigned char rolling_smem[];
-  const int tq = tiled::kRows >> lg;
+  const int tq = grp.tq;
   const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, B, tq);
   if ((int)blockIdx.x >= *p.n_tiles) return;
   const int row = p.tiles[3 * blockIdx.x];
@@ -50,7 +50,7 @@ paged_span_attention_rolling_kernel(
   tiled::PagedRow src{k_cache, v_cache, tables + (size_t)row * nb, bs, Kv,
                       (int)blockIdx.y, n_blocks, stab};
   tiled::attend<HD, false>(src, q, k_span, v_span, positions, offsets, plan,
-                           out, T, H, Kv, lg, B, w_slots, window, n_valid,
+                           out, T, H, Kv, grp, B, w_slots, window, n_valid,
                            scale, rolling_smem);
 }
 
@@ -58,19 +58,20 @@ template <int HD>
 static int launch(const void* q, const void* k_cache, const void* v_cache,
                   const void* k_span, const void* v_span, const void* tables,
                   const void* positions, const void* offsets, void* plan,
-                  void* out, int T, int H, int Kv, int lg, int bs, int B,
-                  int nb, int n_blocks, int window, int n_valid, float scale,
+                  void* out, int T, int H, int Kv, tiled::Group grp, int bs,
+                  int B, int nb, int n_blocks, int window, int n_valid,
+                  float scale,
                   cudaStream_t stream) {
   const size_t smem = tiled::Layout<HD>::bytes(nb * bs, T, nb);
   auto kernel = paged_span_attention_rolling_kernel<HD>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiled::max_tiles(T, B, tiled::kRows >> lg), Kv);
+  const dim3 grid(tiled::max_tiles(T, B, grp.tq), Kv);
   kernel<<<grid, tiled::kThreads, smem, stream>>>(
       (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
       (const tiled::bf16*)v_cache, (const tiled::bf16*)k_span,
       (const tiled::bf16*)v_span, (const int*)tables, (const int*)positions,
-      (const int*)offsets, (const int*)plan, (tiled::bf16*)out, T, H, Kv, lg,
+      (const int*)offsets, (const int*)plan, (tiled::bf16*)out, T, H, Kv, grp,
       tiled::FastDiv(bs), B, nb, n_blocks, window, n_valid, scale);
   return (int)cudaGetLastError();
 }
@@ -79,7 +80,7 @@ static int launch(const void* q, const void* k_cache, const void* v_cache,
 // span's scatter); k_span/v_span [T, Kv, hd] bf16; tables [B, nb],
 // positions/seq_idx/offsets [T] int32; plan: int32 workspace of plan_ints
 // entries (tiled::plan_ints(T, B, 64 / g)); out [T, H*hd] bf16.
-// H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}.
+// H / Kv in 1..16, hd in {16, 32, 64, 128}.
 extern "C" int paged_span_attention_rolling(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_span, const void* v_span, const void* tables,
@@ -88,18 +89,18 @@ extern "C" int paged_span_attention_rolling(
     int nb, int n_blocks, int window, int n_valid, long long plan_ints,
     float scale, void* stream) {
   if (T == 0) return 0;
-  const int lg = tiled::log2_group(H, Kv);
-  if (window < 1 || lg < 0 || B < 1 || nb < 1 || bs < 1 ||
-      plan_ints < tiled::plan_ints(T, B, tiled::kRows >> lg))
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (window < 1 || !grp.g || B < 1 || nb < 1 || bs < 1 ||
+      plan_ints < tiled::plan_ints(T, B, grp.tq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
-      (const int*)seq_idx, T, B, tiled::kRows >> lg, (int*)plan);
+      (const int*)seq_idx, T, B, grp.tq, (int*)plan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define ROLLING_LAUNCH(HD)                                                    \
   return launch<HD>(q, k_cache, v_cache, k_span, v_span, tables, positions,  \
-                    offsets, plan, out, T, H, Kv, lg, bs, B, nb, n_blocks,   \
+                    offsets, plan, out, T, H, Kv, grp, bs, B, nb, n_blocks,   \
                     window, n_valid, scale, s)
   switch (hd) {
     case 16: ROLLING_LAUNCH(16);

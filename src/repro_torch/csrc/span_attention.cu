@@ -24,38 +24,38 @@ span_attention_kernel(
     const tiled::bf16* __restrict__ q, const tiled::bf16* __restrict__ k_cache,
     const tiled::bf16* __restrict__ v_cache, const int* __restrict__ positions,
     const int* __restrict__ plan, tiled::bf16* __restrict__ out, int T, int H,
-    int Kv, int lg, int R, int S, float scale) {
+    int Kv, tiled::Group grp, int R, int S, float scale) {
   extern __shared__ __align__(16) unsigned char span_smem[];
-  const int tq = tiled::kRows >> lg;
+  const int tq = grp.tq;
   const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, R, tq);
   if ((int)blockIdx.x >= *p.n_tiles) return;
   tiled::ContiguousRow src{k_cache, v_cache, p.tiles[3 * blockIdx.x], S, Kv,
                            (int)blockIdx.y};
   tiled::attend<HD, true>(src, q, nullptr, nullptr, positions, nullptr, plan,
-                          out, T, H, Kv, lg, R, S, 0, T, scale, span_smem);
+                          out, T, H, Kv, grp, R, S, 0, T, scale, span_smem);
 }
 
 template <int HD>
 static int launch(const void* q, const void* k_cache, const void* v_cache,
                   const void* positions, void* plan, void* out, int T, int H,
-                  int Kv, int lg, int R, int S, float scale,
+                  int Kv, tiled::Group grp, int R, int S, float scale,
                   cudaStream_t stream) {
   const size_t smem = tiled::Layout<HD>::bytes(S, 0, 0);
   auto kernel = span_attention_kernel<HD>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiled::max_tiles(T, R, tiled::kRows >> lg), Kv);
+  const dim3 grid(tiled::max_tiles(T, R, grp.tq), Kv);
   kernel<<<grid, tiled::kThreads, smem, stream>>>(
       (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
       (const tiled::bf16*)v_cache, (const int*)positions, (const int*)plan,
-      (tiled::bf16*)out, T, H, Kv, lg, R, S, scale);
+      (tiled::bf16*)out, T, H, Kv, grp, R, S, scale);
   return (int)cudaGetLastError();
 }
 
 // q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16 (the span already
 // written); positions/seq_idx [T] int32; plan: int32 workspace of
 // plan_ints entries (tiled::plan_ints(T, R, 64 / g)); out [T, H*hd] bf16.
-// H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}.
+// H / Kv in 1..16, hd in {16, 32, 64, 128}.
 extern "C" int span_attention(const void* q, const void* k_cache,
                               const void* v_cache, const void* positions,
                               const void* seq_idx, void* plan, void* out,
@@ -63,17 +63,17 @@ extern "C" int span_attention(const void* q, const void* k_cache,
                               long long plan_ints, float scale,
                               void* stream) {
   if (T == 0) return 0;
-  const int lg = tiled::log2_group(H, Kv);
-  if (lg < 0 || R < 1 || S < 1 ||
-      plan_ints < tiled::plan_ints(T, R, tiled::kRows >> lg))
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (!grp.g || R < 1 || S < 1 ||
+      plan_ints < tiled::plan_ints(T, R, grp.tq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
-      (const int*)seq_idx, T, R, tiled::kRows >> lg, (int*)plan);
+      (const int*)seq_idx, T, R, grp.tq, (int*)plan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define SPAN_LAUNCH(HD)                                                      \
-  return launch<HD>(q, k_cache, v_cache, positions, plan, out, T, H, Kv, lg, \
+  return launch<HD>(q, k_cache, v_cache, positions, plan, out, T, H, Kv, grp, \
                     R, S, scale, s)
   switch (hd) {
     case 16: SPAN_LAUNCH(16);

@@ -275,16 +275,17 @@ __device__ __forceinline__ void scores32(int (&s)[4][4],
 
 // The block's 64 query rows (tile blockIdx.x of the plan, kv head
 // blockIdx.y) over its row's int8 cache (src: k8, v8; scales ks, vs at
-// src.vec) and, rolling, its fresh span entries.  q [T, H, hd]; k_span /
+// src.vec) and, rolling, its fresh span entries; POW2: g is a power of two
+// (grp.lg >= 0), rows map to tokens by a shift.  q [T, H, hd]; k_span /
 // v_span [T, Kv, hd] bf16 (rolling); out [T, H * hd].  FULL: offsets,
 // k_span and v_span are not read; window and n_valid are ignored.
-template <int HD, bool FULL, class Src>
+template <int HD, bool FULL, bool POW2, class Src>
 __device__ __forceinline__ void attend(
     Src src, const bf16* __restrict__ ks, const bf16* __restrict__ vs,
     const bf16* __restrict__ q, const bf16* __restrict__ k_span,
     const bf16* __restrict__ v_span, const int* __restrict__ positions,
     const int* __restrict__ offsets, const int* __restrict__ plan,
-    bf16* __restrict__ out, int T, int H, int Kv, int lg, int rows,
+    bf16* __restrict__ out, int T, int H, int Kv, Group grp, int rows,
     int w_slots, int tile, int window, int n_valid, float scale,
     unsigned char* smem) {
   using L = QLayout<HD, FULL>;
@@ -296,7 +297,7 @@ __device__ __forceinline__ void attend(
   const int rg = warp & 3;               // the warp's 16 query rows
   const int half = warp >> 2;            // NH 2: its half of each sub-tile
   const int rtid = tid & (kThreads - 1); // its thread among its half's
-  const int g = 1 << lg, tq = kRows >> lg;
+  const int g = grp.g, tq = grp.tq;
   const int kh = blockIdx.y;
   const Plan p = carve_plan(const_cast<int*>(plan), T, rows, tq);
   const int tile_i = blockIdx.x;
@@ -316,10 +317,11 @@ __device__ __forceinline__ void attend(
   int* misc = reinterpret_cast<int*>(smem + L::MISC_OFF);
   int* items = reinterpret_cast<int*>(smem + L::ITEMS_OFF);
 
-  // 1. the tile's tokens, their arcs, and the block's extent
+  // 1. the tile's tokens, their arcs, and the block's extent (every
+  // entry: a g that is no power of two leaves idle rows at token index tq)
   if (warp == 0) {
     int n_old = 0, pmin = INT_MAX, pmax = INT_MIN;
-    for (int j = lane; j < tq; j += 32) {
+    for (int j = lane; j < kRows; j += 32) {
       int t = -1, pos = -1, a = 0, len = 0;
       if (j < cnt) {
         t = p.order[qfirst + j];
@@ -370,9 +372,10 @@ __device__ __forceinline__ void attend(
     for (int i = 0; i < kRows * CPQ / kThreads; ++i) {
       const int c = tid + i * kThreads;
       const int m = c / CPQ, ch = c - m * CPQ;
-      const int t = tok[m >> lg];
+      const int t = tok[grp.token<POW2>(m)];
       const bool ok = t >= 0;
-      const bf16* s = ok ? q + ((size_t)t * H + kh * g + (m & (g - 1))) * HD
+      const bf16* s = ok ? q + ((size_t)t * H + kh * g +
+                                grp.head<POW2>(m)) * HD
                                + ch * 8
                          : q;
       cp_async16(sq + m * LD16 + ch * 8, s, ok);
@@ -473,6 +476,9 @@ __device__ __forceinline__ void attend(
     ldsm_x4(qa[kb], sq8 + (rg * 16 + (lane & 15)) * LD8 + kb * 32 +
                         ((lane >> 4) << 4));
   const float qs[2] = {sqs[rg * 16 + gq], sqs[rg * 16 + gq + 8]};
+  // the tokens (indices into tok, tpos, tarc, tlen) of those two rows
+  const int jr[2] = {grp.token<POW2>(rg * 16 + gq),
+                     grp.token<POW2>(rg * 16 + gq + 8)};
 
   // the output accumulators stay in shared memory, each thread's own
   // entries (read and written once a p-tile): the registers go to the
@@ -551,8 +557,7 @@ __device__ __forceinline__ void attend(
       vis = 0u;
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
-        const int j = (rg * 16 + gq + ri * 8) >> lg;
-        const int ra = tarc[j], rlen = tlen[j];
+        const int ra = tarc[jr[ri]], rlen = tlen[jr[ri]];
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           if (NH == 2 && kk != half) continue;
@@ -801,9 +806,10 @@ __device__ __forceinline__ void attend(
       lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
       const float den = fmaxf(lsum, 1e-30f);
       const int mrow = rg * 16 + gq + ri * 8;
-      const int j = mrow >> lg;
+      const int j = jr[ri];
       if (j < cnt) {
-        bf16* dst = out + ((size_t)tok[j] * H + kh * g + (mrow & (g - 1))) * HD;
+        bf16* dst = out + ((size_t)tok[j] * H + kh * g +
+                           grp.head<POW2>(mrow)) * HD;
 #pragma unroll
         for (int dg = 0; dg < HDP / 32; ++dg) {
           const int d0 = 32 * dg + 8 * t4;
@@ -873,8 +879,7 @@ __device__ __forceinline__ void attend(
         reinterpret_cast<const bf16*>(smem + buf * L::FRESH_STAGE);
     const int* up = reinterpret_cast<const int*>(tk + 2 * kSlots * LD16);
     const auto row_mask = [&](int ri) {
-      const int j = (rg * 16 + gq + ri * 8) >> lg;
-      const int rpos = tpos[j];
+      const int rpos = tpos[jr[ri]];
       return [=](int n) {
         const int u = up[n];
         return u <= rpos && u > rpos - window;
@@ -896,9 +901,10 @@ __device__ __forceinline__ void attend(
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const float den = fmaxf(lsum, 1e-30f);
     const int mrow = rg * 16 + gq + ri * 8;
-    const int j = mrow >> lg;
+    const int j = jr[ri];
     if (j < cnt) {
-      bf16* dst = out + ((size_t)tok[j] * H + kh * g + (mrow & (g - 1))) * HD
+      bf16* dst = out + ((size_t)tok[j] * H + kh * g +
+                         grp.head<POW2>(mrow)) * HD
                   + 2 * t4;
 #pragma unroll
       for (int nd = 0; nd < HD / 8; ++nd)

@@ -31,16 +31,16 @@ span_attention_rolling_kernel(
     const tiled::bf16* __restrict__ k_span,
     const tiled::bf16* __restrict__ v_span, const int* __restrict__ positions,
     const int* __restrict__ offsets, const int* __restrict__ plan,
-    tiled::bf16* __restrict__ out, int T, int H, int Kv, int lg, int R, int S,
-    int window, int n_valid, float scale) {
+    tiled::bf16* __restrict__ out, int T, int H, int Kv, tiled::Group grp,
+    int R, int S, int window, int n_valid, float scale) {
   extern __shared__ __align__(16) unsigned char rolling_smem[];
-  const int tq = tiled::kRows >> lg;
+  const int tq = grp.tq;
   const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, R, tq);
   if ((int)blockIdx.x >= *p.n_tiles) return;
   tiled::ContiguousRow src{k_cache, v_cache, p.tiles[3 * blockIdx.x], S, Kv,
                            (int)blockIdx.y};
   tiled::attend<HD, false>(src, q, k_span, v_span, positions, offsets, plan,
-                           out, T, H, Kv, lg, R, S, window, n_valid, scale,
+                           out, T, H, Kv, grp, R, S, window, n_valid, scale,
                            rolling_smem);
 }
 
@@ -48,18 +48,19 @@ template <int HD>
 static int launch(const void* q, const void* k_cache, const void* v_cache,
                   const void* k_span, const void* v_span,
                   const void* positions, const void* offsets, void* plan,
-                  void* out, int T, int H, int Kv, int lg, int R, int S,
-                  int window, int n_valid, float scale, cudaStream_t stream) {
+                  void* out, int T, int H, int Kv, tiled::Group grp, int R,
+                  int S, int window, int n_valid, float scale,
+                  cudaStream_t stream) {
   const size_t smem = tiled::Layout<HD>::bytes(S, T, 0);
   auto kernel = span_attention_rolling_kernel<HD>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiled::max_tiles(T, R, tiled::kRows >> lg), Kv);
+  const dim3 grid(tiled::max_tiles(T, R, grp.tq), Kv);
   kernel<<<grid, tiled::kThreads, smem, stream>>>(
       (const tiled::bf16*)q, (const tiled::bf16*)k_cache,
       (const tiled::bf16*)v_cache, (const tiled::bf16*)k_span,
       (const tiled::bf16*)v_span, (const int*)positions, (const int*)offsets,
-      (const int*)plan, (tiled::bf16*)out, T, H, Kv, lg, R, S, window,
+      (const int*)plan, (tiled::bf16*)out, T, H, Kv, grp, R, S, window,
       n_valid, scale);
   return (int)cudaGetLastError();
 }
@@ -67,8 +68,8 @@ static int launch(const void* q, const void* k_cache, const void* v_cache,
 // q [T, H, hd] bf16; caches [R, S, Kv, hd] bf16 (before the span's
 // scatter); k_span/v_span [T, Kv, hd] bf16; positions/seq_idx/offsets [T]
 // int32; plan: int32 workspace of plan_ints entries (tiled::plan_ints(T,
-// R, 64 / g)); out [T, H*hd] bf16.  H / Kv in {1, 2, 4, 8, 16}, hd in {16,
-// 32, 64, 128}.
+// R, 64 / g)); out [T, H*hd] bf16.  H / Kv in 1..16, hd in {16, 32,
+// 64, 128}.
 extern "C" int span_attention_rolling(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_span, const void* v_span, const void* positions,
@@ -76,18 +77,18 @@ extern "C" int span_attention_rolling(
     int H, int Kv, int hd, int R, int S, int window, int n_valid,
     long long plan_ints, float scale, void* stream) {
   if (T == 0) return 0;
-  const int lg = tiled::log2_group(H, Kv);
-  if (window < 1 || lg < 0 || R < 1 || S < 1 ||
-      plan_ints < tiled::plan_ints(T, R, tiled::kRows >> lg))
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (window < 1 || !grp.g || R < 1 || S < 1 ||
+      plan_ints < tiled::plan_ints(T, R, grp.tq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
-      (const int*)seq_idx, T, R, tiled::kRows >> lg, (int*)plan);
+      (const int*)seq_idx, T, R, grp.tq, (int*)plan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define ROLLING_LAUNCH(HD)                                                   \
   return launch<HD>(q, k_cache, v_cache, k_span, v_span, positions, offsets, \
-                    plan, out, T, H, Kv, lg, R, S, window, n_valid, scale, s)
+                    plan, out, T, H, Kv, grp, R, S, window, n_valid, scale, s)
   switch (hd) {
     case 16: ROLLING_LAUNCH(16);
     case 32: ROLLING_LAUNCH(32);

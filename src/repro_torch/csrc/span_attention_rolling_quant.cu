@@ -21,7 +21,7 @@
 // with nb * bs == S it gives paged_span_attention_rolling_quant.cu's bits.
 #include "span_attention_quant_tiled.cuh"
 
-template <int HD>
+template <int HD, bool POW2>
 __global__ void __launch_bounds__(tiled::q8::block_threads<HD>(),
                                   tiled::q8::block_min<HD>())
 span_attention_rolling_quant_kernel(
@@ -31,17 +31,17 @@ span_attention_rolling_quant_kernel(
     const tiled::bf16* __restrict__ k_span,
     const tiled::bf16* __restrict__ v_span, const int* __restrict__ positions,
     const int* __restrict__ offsets, const int* __restrict__ plan,
-    tiled::bf16* __restrict__ out, int T, int H, int Kv, int lg, int R, int S,
-    int tile, int window, int n_valid, float scale) {
+    tiled::bf16* __restrict__ out, int T, int H, int Kv, tiled::Group grp,
+    int R, int S, int tile, int window, int n_valid, float scale) {
   extern __shared__ __align__(16) unsigned char quant_smem[];
-  const int tq = tiled::kRows >> lg;
+  const int tq = grp.tq;
   const tiled::Plan p = tiled::carve_plan(const_cast<int*>(plan), T, R, tq);
   if ((int)blockIdx.x >= *p.n_tiles) return;
   tiled::ContiguousRowOf<signed char> src{k8, v8, p.tiles[3 * blockIdx.x],
                                           S, Kv, (int)blockIdx.y};
-  tiled::q8::attend<HD, false>(src, ks, vs, q, k_span, v_span, positions,
-                               offsets, plan, out, T, H, Kv, lg, R, S, tile,
-                               window, n_valid, scale, quant_smem);
+  tiled::q8::attend<HD, false, POW2>(src, ks, vs, q, k_span, v_span, positions,
+      offsets, plan, out, T, H, Kv, grp, R, S, tile, window, n_valid, scale,
+      quant_smem);
 }
 
 template <int HD>
@@ -49,19 +49,20 @@ static int launch(const void* q, const void* k8, const void* ks,
                   const void* v8, const void* vs, const void* k_span,
                   const void* v_span, const void* positions,
                   const void* offsets, void* plan, void* out, int T, int H,
-                  int Kv, int lg, int R, int S, int tile, int window,
+                  int Kv, tiled::Group grp, int R, int S, int tile, int window,
                   int n_valid, float scale, cudaStream_t stream) {
   const size_t smem = tiled::q8::QLayout<HD, false>::bytes(S, tile, T, 0);
-  auto kernel = span_attention_rolling_quant_kernel<HD>;
+  auto kernel = grp.lg >= 0 ? span_attention_rolling_quant_kernel<HD, true>
+                            : span_attention_rolling_quant_kernel<HD, false>;
   cudaError_t err = tiled::prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiled::max_tiles(T, R, tiled::kRows >> lg), Kv);
+  const dim3 grid(tiled::max_tiles(T, R, grp.tq), Kv);
   kernel<<<grid, tiled::q8::block_threads<HD>(), smem, stream>>>(
       (const tiled::bf16*)q, (const signed char*)k8, (const tiled::bf16*)ks,
       (const signed char*)v8, (const tiled::bf16*)vs,
       (const tiled::bf16*)k_span, (const tiled::bf16*)v_span,
       (const int*)positions, (const int*)offsets, (const int*)plan,
-      (tiled::bf16*)out, T, H, Kv, lg, R, S, tile, window, n_valid, scale);
+      (tiled::bf16*)out, T, H, Kv, grp, R, S, tile, window, n_valid, scale);
   return (int)cudaGetLastError();
 }
 
@@ -69,7 +70,7 @@ static int launch(const void* q, const void* k8, const void* ks,
 // (before the span's scatter); k_span/v_span [T, Kv, hd] bf16;
 // positions/seq_idx/offsets [T] int32; plan: int32 workspace of plan_ints
 // entries (tiled::plan_ints(T, R, 64 / g)); out [T, H*hd] bf16.  H / Kv in
-// {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}, tile >= 1.
+// 1..16, hd in {16, 32, 64, 128}, tile >= 1.
 extern "C" int span_attention_rolling_quant(
     const void* q, const void* k8, const void* ks, const void* v8,
     const void* vs, const void* k_span, const void* v_span,
@@ -78,18 +79,18 @@ extern "C" int span_attention_rolling_quant(
     int tile, int window, int n_valid, long long plan_ints, float scale,
     void* stream) {
   if (T == 0) return 0;
-  const int lg = tiled::log2_group(H, Kv);
-  if (window < 1 || lg < 0 || R < 1 || S < 1 || tile < 1 ||
-      plan_ints < tiled::plan_ints(T, R, tiled::kRows >> lg))
+  const tiled::Group grp = tiled::Group::of(H, Kv);
+  if (window < 1 || !grp.g || R < 1 || S < 1 || tile < 1 ||
+      plan_ints < tiled::plan_ints(T, R, grp.tq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tiled::plan_kernel<<<1, tiled::kThreads, 0, s>>>(
-      (const int*)seq_idx, T, R, tiled::kRows >> lg, (int*)plan);
+      (const int*)seq_idx, T, R, grp.tq, (int*)plan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define ROLLING_LAUNCH(HD)                                                 \
   return launch<HD>(q, k8, ks, v8, vs, k_span, v_span, positions, offsets, \
-                    plan, out, T, H, Kv, lg, R, S, tile, window, n_valid,  \
+                    plan, out, T, H, Kv, grp, R, S, tile, window, n_valid,  \
                     scale, s)
   switch (hd) {
     case 16: ROLLING_LAUNCH(16);

@@ -80,8 +80,9 @@
 // skipping it changes nothing; the paged and contiguous kernels of each
 // mode therefore give identical bits whenever the table's width nb * bs
 // equals the row width S.  No atomics, no split-K: two launches repeat
-// bit for bit.  Instantiated for hd in {16, 32, 64, 128}; g in {1, 2, 4,
-// 8, 16} is a runtime shift (at g 16 a tile is 4 tokens x 16 heads).  The
+// bit for bit.  Instantiated for hd in {16, 32, 64, 128}; g = H / Kv in
+// 1..16 is a runtime tiled::Group (at g 16 a tile is 4 tokens x 16 heads,
+// at g 5 12 tokens x 5 heads and 4 idle rows).  The
 // copy and tensor-core primitives and the tile step are in
 // tiled_primitives.cuh, shared with the flash and split decode bodies; the
 // plan, the row addressing and the fresh-span staging serve the int8 span
@@ -360,14 +361,14 @@ __device__ __forceinline__ void attend(
     Src src, const bf16* __restrict__ q, const bf16* __restrict__ k_span,
     const bf16* __restrict__ v_span, const int* __restrict__ positions,
     const int* __restrict__ offsets, const int* __restrict__ plan,
-    bf16* __restrict__ out, int T, int H, int Kv, int lg, int rows,
+    bf16* __restrict__ out, int T, int H, int Kv, Group grp, int rows,
     int w_slots, int window, int n_valid, float scale,
     unsigned char* smem) {
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int CPS = HD / 8;  // 16-byte chunks of one slot (or query row)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = 1 << lg, tq = kRows >> lg;
+  const int g = grp.g, tq = grp.tq;
   const int kh = blockIdx.y;
   const Plan p = carve_plan(const_cast<int*>(plan), T, rows, tq);
   const int tile = blockIdx.x;
@@ -387,10 +388,12 @@ __device__ __forceinline__ void attend(
   int* misc = reinterpret_cast<int*>(smem + L::MISC_OFF);
   int* items = reinterpret_cast<int*>(smem + L::ITEMS_OFF);
 
-  // 1. the tile's tokens, their arcs, and the block's extent
+  // 1. the tile's tokens, their arcs, and the block's extent (every
+  // entry of the arrays: a g that is no power of two leaves idle rows at
+  // token index tq)
   if (warp == 0) {
     int n_old = 0, pmin = INT_MAX, pmax = INT_MIN;
-    for (int j = lane; j < tq; j += 32) {
+    for (int j = lane; j < kRows; j += 32) {
       int t = -1, pos = -1, a = 0, len = 0;
       if (j < cnt) {
         t = p.order[qfirst + j];
@@ -438,9 +441,9 @@ __device__ __forceinline__ void attend(
   for (int i = 0; i < kRows * CPS / kThreads; ++i) {
     const int c = tid + i * kThreads;
     const int m = c / CPS, ch = c - m * CPS;
-    const int t = tok[m >> lg];
+    const int t = tok[grp.token(m)];
     const bool ok = t >= 0;
-    const bf16* s = ok ? q + ((size_t)t * H + kh * g + (m & (g - 1))) * HD
+    const bf16* s = ok ? q + ((size_t)t * H + kh * g + grp.head(m)) * HD
                              + ch * 8
                        : q;
     cp_async16(sq + m * LD + ch * 8, s, ok);
@@ -520,7 +523,7 @@ __device__ __forceinline__ void attend(
     // held in registers (hd 64 would spill); pos -1 past the tile's tokens
     // sees nothing
     const auto row_mask = [&](int ri) {
-      const int j = (warp * 16 + (lane >> 2) + ri * 8) >> lg;
+      const int j = grp.token(warp * 16 + (lane >> 2) + ri * 8);
       const int rpos = tpos[j], ra = tarc[j], rlen = tlen[j];
       return [=](int n) {
         if (old) {
@@ -549,9 +552,9 @@ __device__ __forceinline__ void attend(
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const float den = fmaxf(lsum, 1e-30f);
     const int mrow = warp * 16 + (lane >> 2) + ri * 8;
-    const int j = mrow >> lg;
+    const int j = grp.token(mrow);
     if (j < cnt) {
-      bf16* dst = out + ((size_t)tok[j] * H + kh * g + (mrow & (g - 1))) * HD
+      bf16* dst = out + ((size_t)tok[j] * H + kh * g + grp.head(mrow)) * HD
                   + 2 * (lane & 3);
 #pragma unroll
       for (int nd = 0; nd < HD / 8; ++nd)

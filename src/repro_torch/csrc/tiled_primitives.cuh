@@ -265,20 +265,40 @@ __device__ __forceinline__ void fold_tile(
   }
 }
 
-// Host side: g = H / Kv of the 64-row bodies (span, flash) as a shift
-// (g in {1, 2, 4, 8, 16}: a block's 64 rows are 64 / g tokens x g heads),
-// or -1.
-inline int log2_group(int H, int Kv) {
-  if (Kv < 1 || H % Kv) return -1;
-  switch (H / Kv) {
-    case 1: return 0;
-    case 2: return 1;
-    case 4: return 2;
-    case 8: return 3;
-    case 16: return 4;
-    default: return -1;
+// The query group of the 64-row bodies (span, flash): g = H / Kv query
+// heads share a kv head, 1 <= g <= kMaxGroup.  A block's 64 query rows are
+// tq = 64 / g tokens (or positions) x g heads: row m is token m / g, head
+// m % g.  Where g is not a power of two, rows tq * g .. 63 are idle (4 of
+// 64 at g 5: 12 tokens x 5 heads): they map to token index tq, which a
+// block never fills, so they load no query, see no slot and are written
+// nowhere, and each row's softmax state and p-tile scale are its own.  m / g
+// is a multiply and a shift: (m * mul) >> 10 with mul = ceil(1024 / g) is
+// exact for m < 64 and g <= 16 (m = q g + r: the product is q + (r + m e /
+// 1024) / g with e = mul g - 1024 < g, and r + m e / 1024 <= g - 1 + 63 *
+// 15 / 1024 < g), and for a power of two it is m >> log2 g.  The int8 span
+// body instantiates the power-of-two case apart (POW2: the shift and mask
+// it had before any other g), the kernels' launch choosing by lg.
+constexpr int kMaxGroup = 16;
+
+struct Group {
+  int g, tq, mul, lg;  // g 0: refused; lg: log2 g, or -1 if no power of 2
+  __host__ static Group of(int H, int Kv) {
+    if (Kv < 1 || H % Kv || H / Kv < 1 || H / Kv > kMaxGroup)
+      return Group{0, 0, 0, -1};
+    const int g = H / Kv;
+    int lg = 0;
+    while ((1 << lg) < g) ++lg;
+    return Group{g, 64 / g, (1024 + g - 1) / g, (1 << lg) == g ? lg : -1};
   }
-}
+  template <bool POW2 = false>
+  __device__ __forceinline__ int token(int m) const {
+    return POW2 ? m >> lg : (m * mul) >> 10;
+  }
+  template <bool POW2 = false>
+  __device__ __forceinline__ int head(int m) const {
+    return POW2 ? m & (g - 1) : m - token(m) * g;
+  }
+};
 
 // Above 48 KB of dynamic shared memory a kernel must opt in.
 template <typename Kernel>

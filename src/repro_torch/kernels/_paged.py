@@ -101,24 +101,27 @@ def quant_flip_term(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
 
 # The tiled bodies (csrc/span_attention_tiled.cuh: the bf16 span kernels,
 # full-cache and rolling; csrc/span_attention_quant_tiled.cuh: the int8
-# ones; csrc/flash_attention.cu): blocks of QUERY_ROWS query rows, 64 / g
-# tokens (or positions) x g heads of one kv head
+# ones; csrc/flash_attention.cu): blocks of QUERY_ROWS query rows, tq =
+# QUERY_ROWS // g tokens (or positions) x g heads of one kv head; where g
+# does not divide QUERY_ROWS the rows from tq * g on are idle
+# (tiled::Group)
 QUERY_ROWS = 64
-TILED_GROUPS = (1, 2, 4, 8, 16)     # g = H / Kv
+TILED_MAX_GROUP = 16                # g = H / Kv in 1..16
 TILED_WIDTHS = (16, 32, 64, 128)    # hd
 
 
 def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
     """The tiled bodies' shapes, for a CUDA call (q [..., H, hd]): g = H /
-    Kv in TILED_GROUPS, hd in TILED_WIDTHS, 16-byte aligned data
-    (cp.async).  Raises ValueError; the caller never falls back to the
-    plain version."""
+    Kv an integer in 1..TILED_MAX_GROUP, hd in TILED_WIDTHS, 16-byte
+    aligned data (cp.async).  Raises ValueError; the caller never falls
+    back to the plain version."""
     h, hd = q.shape[-2], q.shape[-1]
-    if h % kv_heads or h // kv_heads not in TILED_GROUPS \
+    if kv_heads < 1 or h % kv_heads \
+            or not 1 <= h // kv_heads <= TILED_MAX_GROUP \
             or hd not in TILED_WIDTHS:
         raise ValueError(f"the tiled kernels take g = H / Kv in "
-                         f"{TILED_GROUPS} and hd in {TILED_WIDTHS}, got "
-                         f"H = {h}, Kv = {kv_heads}, hd = {hd}")
+                         f"1..{TILED_MAX_GROUP} and hd in {TILED_WIDTHS}, "
+                         f"got H = {h}, Kv = {kv_heads}, hd = {hd}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the tiled kernels need 16-byte aligned inputs")
 

@@ -77,8 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv tile (query block with a window) is ``kv_block`` (the kernel's
     tiles are 64 keys wide; the tile changes only the order of fp32 sums,
     and in bf16 where the probabilities round); CUDA tensors launch the
-    kernel (bf16, hd in ``HEAD_DIMS``, H / Kv in ``_paged.TILED_GROUPS``,
-    16-byte aligned; other shapes raise ValueError), counted by
+    kernel (bf16, hd in ``HEAD_DIMS``, H / Kv in 1..16, 16-byte aligned;
+    other shapes raise ValueError), counted by
     :func:`flash_attention` (causal) or :func:`flash_attention_noncausal`."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be [B, S, H, hd] and k, v one [B, S, Kv, "

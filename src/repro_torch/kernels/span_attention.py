@@ -112,9 +112,9 @@ def paged_span_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``seq_idx[t]``.  q [T, H, hd]; caches [n_blocks, bs, Kv, hd];
     block_tables [B, nb] int32; positions/seq_idx [T] int32 ->
     [T, H*hd].  CPU tensors take the plain version; CUDA tensors launch
-    the tiled kernel (bf16, g = H / Kv in {1, 2, 4, 8, 16}, hd in {16, 32,
-    64, 128}; other shapes raise ValueError), a planning pass and the main
-    kernel, with no host synchronisation."""
+    the tiled kernel (bf16, g = H / Kv in 1..16, hd in {16, 32, 64, 128};
+    other shapes raise ValueError), a planning pass and the main kernel,
+    with no host synchronisation."""
     if window:
         raise NotImplementedError(
             "windowed span attention over a full cache is not ported; "
@@ -272,9 +272,8 @@ def paged_span_attention_rolling(q: torch.Tensor, k_cache: torch.Tensor,
     k_span/v_span [T, Kv, hd]; block_tables [B, nb] int32;
     positions/seq_idx/offsets [T] int32 -> [T, H*hd].  CPU tensors take
     the plain version; CUDA tensors launch the tiled kernel (bf16, g = H /
-    Kv in {1, 2, 4, 8, 16}, hd in {16, 32, 64, 128}; other shapes raise
-    ValueError), a planning pass and the main kernel, with no host
-    synchronisation."""
+    Kv in 1..16, hd in {16, 32, 64, 128}; other shapes raise ValueError),
+    a planning pass and the main kernel, with no host synchronisation."""
     _paged.check(q, k_cache, v_cache, block_tables,
                  {"positions": positions, "seq_idx": seq_idx})
     _check_rolling(q, k_span, v_span, offsets, n_valid, window)

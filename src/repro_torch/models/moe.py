@@ -18,7 +18,7 @@ scatter-add does.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,9 +48,14 @@ def capacity(tokens: int, moe: MoEConfig) -> int:
     return max(8, int(math.ceil(c / 8)) * 8) if tokens >= 64 else max(c, 4)
 
 
-def moe_local(x2d: torch.Tensor, params, moe: MoEConfig) -> torch.Tensor:
+def moe_local(x2d: torch.Tensor, params, moe: MoEConfig,
+              shared: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
     """MoE over tokens x2d [T, d] -> [T, d] (the reference's
-    ``_moe_local`` with every expert on this device)."""
+    ``_moe_local`` with every expert on this device).  ``shared``
+    (``{w1, w3, w2}``, llama4's shared expert in its fused form): its
+    SwiGLU of every token is added to the routed sum before the final
+    cast, as the reference folds it into the routed experts' sum."""
     t, d = x2d.shape
     e, k = moe.num_experts, moe.top_k
     cap = capacity(t, moe)
@@ -78,10 +83,17 @@ def moe_local(x2d: torch.Tensor, params, moe: MoEConfig) -> torch.Tensor:
     contrib = y_flat[dest] * sg[:, None].to(y.dtype)
     contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
     out = y.new_zeros((t, d)).index_put_((st,), contrib, accumulate=True)
+    if shared is not None:
+        a = F.silu(x2d @ shared["w1"]) * (x2d @ shared["w3"])
+        out = out + (a @ shared["w2"]).to(out.dtype)
     return out.to(x2d.dtype)
 
 
-def moe_ffn(x: torch.Tensor, params, moe: MoEConfig) -> torch.Tensor:
+def moe_ffn(x: torch.Tensor, params, moe: MoEConfig,
+            shared: Optional[Dict[str, torch.Tensor]] = None
+            ) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]: every token of the batch, padding
-    included, is routed together, as in the reference."""
-    return moe_local(x.reshape(-1, x.shape[-1]), params, moe).reshape(x.shape)
+    included, is routed together, as in the reference; ``shared`` as
+    :func:`moe_local`."""
+    return moe_local(x.reshape(-1, x.shape[-1]), params, moe,
+                     shared).reshape(x.shape)

@@ -5,7 +5,8 @@ encoder-decoder family (whisper).
 Model = embed -> Stack -> final norm -> lm head.  Parameters are nested
 dicts of tensors in the reference's layout (``embed``, ``lnf``, ``head``,
 ``stacks/blocks/l0/{attn,ffn}/...`` with a leading ``[groups]`` axis; an
-MoE layer's ``ffn`` is ``{ln, moe: {router, w1, w3, w2}}``; whisper has
+MoE layer's ``ffn`` is ``{ln, moe: {router, w1, w3, w2}}``, with
+``shared_w1/w3/w2`` beside them for a shared expert; whisper has
 ``stacks/encoder/{attn,ffn}``, ``stacks/decoder/{self,cross,ffn}`` and
 ``enc_lnf``), so :mod:`repro_torch.bridge` maps the reference's pytree
 onto them leaf for leaf.  The engine drives the dense and MoE models
@@ -13,8 +14,8 @@ through the ``make_ctx``, ``embed_tokens`` and ``lm_head`` hooks and
 :func:`run_stack`; it does not serve the audio family, which runs
 through ``prefill`` and ``decode`` (and :meth:`Model.init_cache`).
 :class:`ModelOptions` selects the int8 KV cache (``kv_quant``; dense and
-MoE) and the prefill attention's kv tile; the reference's other options
-are not ported and raise when set.
+MoE), the prefill attention's kv tile and the fused shared expert; the
+reference's other options are not ported and raise when set.
 """
 from __future__ import annotations
 
@@ -38,8 +39,10 @@ PyTree = Any
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
     """The reference's ``repro.models.ModelOptions``.  Ported: ``kv_block``
-    (prefill attention's kv tile) and ``kv_quant`` (int8 KV cache, one bf16
-    scale per K/V vector).  The others keep their defaults or raise."""
+    (prefill attention's kv tile), ``kv_quant`` (int8 KV cache, one bf16
+    scale per K/V vector) and ``fuse_shared_expert`` (a shared expert's
+    product inside the MoE FFN's sum, :func:`repro_torch.models.moe.
+    moe_local`).  The others keep their defaults or raise."""
     kv_block: int = 512
     triangular: bool = False
     fuse_shared_expert: bool = False
@@ -49,8 +52,7 @@ class ModelOptions:
     logits_fp32: bool = True
 
 
-_UNPORTED_OPTIONS = ("triangular", "fuse_shared_expert", "seq_shard",
-                     "remat", "logits_fp32")
+_UNPORTED_OPTIONS = ("triangular", "seq_shard", "remat", "logits_fp32")
 
 
 @dataclasses.dataclass
@@ -248,7 +250,8 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
                    rope_sin=sin, seq_idx=seq_idx, span_starts=span_starts,
                    n_valid=n_valid, seq_lens=seq_lens,
                    block_tables=block_tables, rows=rows, enc_out=enc_out,
-                   kv_block=options.kv_block, kv_quant=options.kv_quant)
+                   kv_block=options.kv_block, kv_quant=options.kv_quant,
+                   fuse_shared_expert=options.fuse_shared_expert)
 
     def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]

@@ -50,6 +50,8 @@ class Ctx:
     kv_block: int = 512
     # int8 KV cache: {k, v} int8 with bf16 scales {ks, vs}
     kv_quant: bool = False
+    # a shared expert inside the MoE FFN's sum (ModelOptions)
+    fuse_shared_expert: bool = False
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
 """Decoder blocks: self-attention over a paged or contiguous KV cache +
-SwiGLU or a sparse MoE FFN; gated cross-attention to an encoder's output.
+SwiGLU or a sparse MoE FFN (with llama4's shared expert); gated
+cross-attention to an encoder's output.
 
 Ports ``repro.models.transformer`` for the ``dense`` and ``moe`` families
 in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout
@@ -40,8 +41,6 @@ from repro_torch.models.attention import (fill_rolling_cache,
 from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.stacked import Ctx, Stack
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1)"
 
 
 def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -307,14 +306,27 @@ def mlp_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + a @ p["w2"]
 
 
-def moe_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def moe_block(p, x: torch.Tensor, cfg: ArchConfig, *,
+              fuse_shared: bool = False) -> torch.Tensor:
     """Residual sparse-MoE FFN.  x [B, S, d] (prefill) or [N, d] (decode
-    rows, packed chunk tokens): every row is routed, padding included."""
-    if "shared_w1" in p:
-        raise NotImplementedError(f"a shared expert {_NOT_PORTED}")
+    rows, packed chunk tokens): every row is routed, padding included.  A
+    shared expert (``shared_w1/w3/w2``, llama4) runs beside the routed
+    ones: as a separate dense branch added to their output (the
+    reference's baseline), or, with ``fuse_shared``, inside
+    :func:`moe_local`, added to the routed sum before its final cast."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     squeeze = h.dim() == 2
-    y = moe_ffn(h[:, None, :] if squeeze else h, p["moe"], cfg.moe)
+    h3 = h[:, None, :] if squeeze else h
+    has_shared = "shared_w1" in p
+    if has_shared and fuse_shared:
+        shared = {"w1": p["shared_w1"], "w3": p["shared_w3"],
+                  "w2": p["shared_w2"]}
+        y = moe_ffn(h3, p["moe"], cfg.moe, shared=shared)
+    else:
+        y = moe_ffn(h3, p["moe"], cfg.moe)
+        if has_shared:
+            a = F.silu(h3 @ p["shared_w1"]) * (h3 @ p["shared_w3"])
+            y = y + a @ p["shared_w2"]
     return x + (y[:, 0, :] if squeeze else y)
 
 
@@ -323,23 +335,29 @@ def dense_layer_stack(cfg: ArchConfig, n: int, *, moe_every: int = 0) -> Stack:
     (``moe_every=0``: one layer per group, MoE iff the config has experts),
     keyed ``l0, l1, ...``, as in the reference."""
     per = max(moe_every, 1)
-    if cfg.moe is not None and cfg.moe.shared:
-        raise NotImplementedError(f"a shared expert {_NOT_PORTED}")
     kinds = tuple("moe" if cfg.moe is not None and i == per - 1 else "mlp"
                   for i in range(per))
     specs = {}
     for i, kind in enumerate(kinds):
-        ffn = ({"ln": ParamSpec((cfg.d_model,), "ones"),
-                "moe": moe_specs(cfg.d_model, cfg.moe)} if kind == "moe"
-               else mlp_specs(cfg))
+        if kind == "moe":
+            ffn = {"ln": ParamSpec((cfg.d_model,), "ones"),
+                   "moe": moe_specs(cfg.d_model, cfg.moe)}
+            if cfg.moe.shared:
+                ff = cfg.moe.expert_d_ff or cfg.d_ff
+                ffn.update(shared_w1=ParamSpec((cfg.d_model, ff)),
+                           shared_w3=ParamSpec((cfg.d_model, ff)),
+                           shared_w2=ParamSpec((ff, cfg.d_model), fan_in=ff))
+        else:
+            ffn = mlp_specs(cfg)
         specs[f"l{i}"] = {"attn": attn_specs(cfg), "ffn": ffn}
 
     def apply(gp, x, ctx: Ctx, cache_g):
         for i, kind in enumerate(kinds):
             lp = gp[f"l{i}"]
             x = self_attn_block(lp["attn"], x, ctx, cache_g[f"l{i}"], cfg)
-            x = (moe_block(lp["ffn"], x, cfg) if kind == "moe"
-                 else mlp_block(lp["ffn"], x, cfg))
+            x = (moe_block(lp["ffn"], x, cfg,
+                           fuse_shared=ctx.fuse_shared_expert)
+                 if kind == "moe" else mlp_block(lp["ffn"], x, cfg))
         return x
 
     return Stack(n, specs, apply)

@@ -287,7 +287,8 @@ def test_unported_configurations_raise(models):
     # windowed and MoE models run (tests/test_torch_moe.py); a window that
     # is not a block multiple takes contiguous rolling rows under the
     # default layout, as in the reference.  What still raises: the hybrid
-    # family, and a shared expert, fused or not
+    # family.  A shared expert, fused or not, is served
+    # (tests/test_torch_configs.py)
     windowed = build_model(dataclasses.replace(get_config(ARCH), window=20))
     eng = engine.SiPipeEngine(windowed, params, engine.EngineConfig())
     assert eng.cfg.kv_layout == "contiguous"
@@ -300,11 +301,13 @@ def test_unported_configurations_raise(models):
     with pytest.raises(NotImplementedError, match="hybrid"):
         build_model(dataclasses.replace(get_config(ARCH), family="hybrid"))
     moe = get_config("mixtral-8x7b-smoke")
-    with pytest.raises(NotImplementedError, match="shared expert"):
-        build_model(dataclasses.replace(
-            moe, moe=dataclasses.replace(moe.moe, shared=True)))
-    with pytest.raises(NotImplementedError, match="fuse_shared_expert"):
-        build_model(moe, ModelOptions(fuse_shared_expert=True))
+    shared = build_model(dataclasses.replace(
+        moe, moe=dataclasses.replace(moe.moe, shared=True)),
+        ModelOptions(fuse_shared_expert=True))
+    assert "shared_w1" in shared.specs["stacks"]["blocks"]["l0"]["ffn"]
+    eng = engine.SiPipeEngine(shared, shared.init(0, device="cpu"),
+                              engine.EngineConfig())
+    eng.shutdown()
 
 
 def test_entry_points_default_to_cuda_and_refuse_the_cpu_silently(

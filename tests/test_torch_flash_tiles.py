@@ -129,6 +129,7 @@ FLASH_CASES = {
     "window 16": (1, 97, 97, 2, 2, 32, True, 16),
     "g 4 hd 128": (1, 384, 384, 2, 4, 128, True, 0),
     "g 16": (1, 70, 70, 1, 16, 64, True, 0),
+    "g 5 hd 128": (1, 100, 100, 2, 5, 128, True, 0),    # llama4's group
 }
 
 
@@ -220,7 +221,7 @@ TILE_CASES = {
 }
 
 
-@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("g", [1, 4, 5, 16])
 @pytest.mark.parametrize("name", list(TILE_CASES))
 def test_flash_tile_rule_matches_the_plain_mask(name, g):
     """Every block of 64 / g positions: each tile it skips holds no pair
@@ -340,6 +341,8 @@ SPAN_CASES = {
     "interleaved": ([(0, 37), (50, 9), (3, 70), (120, 1)], 2, 2, 32, True),
     "g 16": ([(0, 11), (90, 6), (33, 40)], 1, 16, 16, False),
     "g 16 interleaved": ([(0, 11), (90, 6), (33, 40)], 2, 16, 32, True),
+    # llama4's group: query tiles of 12 tokens x 5 heads, 4 idle rows
+    "g 5 interleaved": ([(0, 11), (90, 6), (33, 40)], 2, 5, 16, True),
 }
 
 
@@ -426,16 +429,23 @@ def test_flash_plain_matches_pallas_at_g16():
 
 def test_tiled_check_takes_g16_and_refuses_other_shapes():
     """_paged.check_tiled (run before every launch of the tiled span and
-    flash bodies; no fallback) reads shapes and pointers only: g 16 is
-    taken, g 3 and hd 96 raise ValueError, in the span layout [T, H, hd]
-    and the flash layout [B, S, H, hd]."""
+    flash bodies; no fallback) reads shapes and pointers only: g 16 and
+    the groups that are no power of two (3, 5, 6) are taken, g 17, H % Kv
+    != 0 and hd 96 raise ValueError, in the span layout [T, H, hd] and the
+    flash layout [B, S, H, hd]."""
     for shape in ((5, 32, 128), (2, 7, 32, 128)):
         q = torch.zeros(shape, dtype=torch.bfloat16)
         _paged.check_tiled(q, 2, [q])                     # g 16
-        with pytest.raises(ValueError, match="g = H / Kv"):
-            _paged.check_tiled(torch.zeros(shape[:-2] + (12, 128)), 4, [q])
+        for h, kv in ((12, 4), (40, 8), (12, 2)):         # g 3, 5, 6
+            _paged.check_tiled(torch.zeros(shape[:-2] + (h, 128)), kv, [q])
+        for h, kv in ((17, 1), (32, 3)):                  # g 17; 32 % 3
+            with pytest.raises(ValueError, match="g = H / Kv"):
+                _paged.check_tiled(torch.zeros(shape[:-2] + (h, 128)), kv,
+                                   [q])
         with pytest.raises(ValueError, match="hd in"):
             _paged.check_tiled(torch.zeros(shape[:-2] + (32, 96)), 2, [q])
-    assert 16 in _paged.TILED_GROUPS and 3 not in _paged.TILED_GROUPS
+    assert _paged.TILED_MAX_GROUP == 16
     # the planning workspace at g 16: query tiles of 4 tokens
     assert _paged.plan_ints(130, 3, 16) == 1 + 3 * (33 + 3) + 260 + 9
+    # and at g 5: 12 tokens (ceil(130 / 12) = 11 tiles)
+    assert _paged.plan_ints(130, 3, 5) == 1 + 3 * (11 + 3) + 260 + 9

@@ -81,6 +81,10 @@ CASES = {
              "interleaved", None, 16),
 }
 SMALL = ("full", "mixed", "wrapped", "narrow")    # Pallas-sized grids
+# the fold's mirror at every case and width, and at g 5 (llama4's 40 / 8:
+# 12 tokens x 5 heads a query tile, 4 idle rows) on the smaller cases
+FOLD = [(g, hd, name) for g, hd in WIDTHS for name in CASES] \
+    + [(5, 16, name) for name in SMALL]
 
 
 def _case(seed, name, g, hd, kv=None):
@@ -438,8 +442,7 @@ def _plain_p8(fn, args, kw):
 
 
 @pytest.mark.parametrize("layout", ["paged", "rows"])
-@pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("g,hd", WIDTHS)
+@pytest.mark.parametrize("g,hd,name", FOLD)
 def test_tiled_fold_keeps_p8_and_holds_the_limit(g, hd, name, layout):
     """The fold's p8 and ps equal the plain version's bit for bit wherever
     the row has seen a slot (up to the p-tile; on a p-tile that no token
@@ -513,17 +516,21 @@ def test_skipping_is_exact():
 def test_int8_tiled_shape_check():
     """The int8 wrappers' CUDA shape check, ``check_tiled`` (run before the
     launch; it reads only shapes and pointers, so it runs here on CPU
-    tensors): g in {1, 2, 4, 8, 16} and hd in {16, 32, 64, 128} pass with
-    the int8 caches among the aligned inputs; g 3 and hd 96 raise
-    ValueError.  The p-tile is no shape of the body: it walks any tile of
-    at least one slot, and kv_tile gives 16, 64 and 512 at the widths
-    chip_smoke.py runs (16-slot pages, W 64 and 4096)."""
+    tensors): any integer g = H / Kv in 1..16 (g 16, 1, 3, 5, 6) and hd in
+    {16, 32, 64, 128} pass with the int8 caches among the aligned inputs;
+    g 17, H % Kv != 0 and hd 96 raise ValueError.  The p-tile is no shape
+    of the body: it walks any tile of at least one slot, and kv_tile gives
+    16, 64 and 512 at the widths chip_smoke.py runs (16-slot pages, W 64
+    and 4096)."""
     q = torch.zeros((5, 16, 64), dtype=torch.bfloat16)
     k8 = torch.zeros((9, 16, 1, 64), dtype=torch.int8)
     _paged.check_tiled(q, 1, [q, k8, k8])                    # g 16
     _paged.check_tiled(q, 16, [q, k8, k8])                   # g 1
-    with pytest.raises(ValueError, match="g = H / Kv"):
-        _paged.check_tiled(torch.zeros((5, 12, 64)), 4, [])  # g 3
+    for h, kv in ((12, 4), (40, 8), (12, 2)):                # g 3, 5, 6
+        _paged.check_tiled(torch.zeros((5, h, 64)), kv, [])
+    for h, kv in ((17, 1), (40, 3)):                         # g 17; 40 % 3
+        with pytest.raises(ValueError, match="g = H / Kv"):
+            _paged.check_tiled(torch.zeros((5, h, 64)), kv, [])
     with pytest.raises(ValueError, match="hd in"):
         _paged.check_tiled(torch.zeros((5, 4, 96)), 2, [])
     assert [P.kv_tile(kv_block, width) for kv_block, width in

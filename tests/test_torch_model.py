@@ -390,17 +390,19 @@ def test_bridge_serves_the_int8_cache_model(models):
 
 
 def test_unported_paths_raise(models):
-    """What stays unported raises: the reference's other model options,
-    families other than dense, moe and audio, and a shared expert.  (The
-    audio family runs: tests/test_torch_whisper.py.  The MoE
-    family and windowed attention run: tests/test_torch_moe.py; the
+    """What stays unported raises: the reference's other model options
+    and families other than dense, moe and audio.  (The audio family runs:
+    tests/test_torch_whisper.py.  The MoE family and windowed attention
+    run: tests/test_torch_moe.py; a shared expert and its fused form
+    (``fuse_shared_expert``) run: tests/test_torch_configs.py; the
     contiguous cache layout runs, checked here and in
     tests/test_torch_contiguous.py.)"""
     _, _, model, params = models
     cfg = get_config(ARCH)
-    for opt in ("triangular", "fuse_shared_expert", "seq_shard"):
+    for opt in ("triangular", "seq_shard"):
         with pytest.raises(NotImplementedError, match=opt):
             build_model(cfg, ModelOptions(**{opt: True}))
+    build_model(cfg, ModelOptions(fuse_shared_expert=True))
     with pytest.raises(NotImplementedError, match="remat"):
         build_model(cfg, ModelOptions(remat=False))
     with pytest.raises(NotImplementedError):

@@ -37,6 +37,9 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 WIDTHS = [(2, 16), (4, 32)]          # (g, hd): mixtral-smoke's, and g 4
+# the fold's mirror also at g 5 (llama4's 40 / 8): 12 tokens x 5 heads a
+# query tile, 4 idle rows
+FOLD_WIDTHS = WIDTHS + [(5, 16)]
 
 # name: (window, spans, pad, order, nb).  spans[r] = (off, c): row r holds
 # positions [0, off) and the span brings off..off+c-1.
@@ -291,7 +294,7 @@ def _tiled(q, k_rows, v_rows, k_span, v_span, pos, seq, offs, n_valid,
 
 
 @pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("g,hd", WIDTHS)
+@pytest.mark.parametrize("g,hd", FOLD_WIDTHS)
 def test_tiled_fold_within_the_kernel_limit(g, hd, name):
     """The tiled body's fold (bf16 values, bf16 output) against the plain
     version run in fp32 on the same values, within the limit chip_smoke.py
@@ -340,13 +343,13 @@ def test_tiled_shapes_and_plan_size():
     the planning workspace's size."""
     q = torch.zeros((5, 12, 16), dtype=torch.bfloat16)
     _paged.check_tiled(q, 3, [q])                 # g 4, hd 16
-    for kv, width in ((4, 16), (12, 16), (2, 16)):   # g 3, 1, 6
-        qq = torch.zeros((5, 12, width), dtype=torch.bfloat16)
-        if 12 // kv in _paged.TILED_GROUPS:
+    for h, kv in ((12, 4), (12, 12), (12, 2), (40, 8)):   # g 3, 1, 6, 5
+        qq = torch.zeros((5, h, 16), dtype=torch.bfloat16)
+        _paged.check_tiled(qq, kv, [qq])
+    for h, kv in ((17, 1), (12, 5), (12, 0)):     # g 17; H % Kv != 0
+        qq = torch.zeros((5, h, 16), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="g = H / Kv"):
             _paged.check_tiled(qq, kv, [qq])
-        else:
-            with pytest.raises(ValueError, match="g = H / Kv"):
-                _paged.check_tiled(qq, kv, [qq])
     for width in (8, 48, 96, 256):
         qq = torch.zeros((5, 4, width), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="hd in"):
@@ -355,6 +358,8 @@ def test_tiled_shapes_and_plan_size():
     # three per row
     assert _paged.plan_ints(256, 4, 4) == 1 + 3 * (16 + 4) + 512 + 12
     assert _paged.plan_ints(3, 8, 1) == 1 + 3 * (1 + 3) + 6 + 24
+    # g 5 (llama4's 40 / 8): query tiles of 64 // 5 = 12 tokens
+    assert _paged.plan_ints(256, 4, 5) == 1 + 3 * (22 + 4) + 512 + 12
 
 
 def _fast_div(d):
