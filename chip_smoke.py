@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on the GPU.
 
-    python3 chip_smoke.py [--phases kernels,rolling,engine,serving,mixtral,configs,contiguous,reference,whisper,fused]
+    python3 chip_smoke.py [--phases kernels,rolling,engine,serving,mixtral,configs,contiguous,reference,whisper,families,fused]
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports the port (``src/repro_torch``) and nothing of the JAX package.
@@ -135,6 +135,35 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    tokens and logits, and other frames must move the prefill logits.
    Last, whisper-small-smoke (1500 frames, hd 16) on the card
    against the CPU, as in 7.
+8b. families — right after the whisper phase: the hybrid, ssm and vlm
+   families through the model API (the engines do not serve them).
+   First rows 3w and 2cr at recurrentgemma-9b's widths (H 16 over Kv 1:
+   g 16, hd 256, W 2048), where the flash and bf16 decode bodies keep Q
+   in shared memory: the flash kernel's window band over a 2300-token
+   prompt, at S 65 and at W 64, its non-causal form at hd 256, and the
+   contiguous rolling decode kernel over contexts 64-2300 and at W 64,
+   held and timed beside their bounds and SDPA with ``enable_gqa`` (the
+   kernels line's ``<name>_hd256`` entries); the four bf16 decode modes at
+   hd 256 on the split edges (rows == pages bit for bit); the ptxas lines
+   of the hd-256 kernels.  Rows 3, 3n and 2c at llama-3.2-vision-90b's
+   widths (H 64 over Kv 8: g 8, hd 128): the causal flash kernel over a
+   1024-token prompt, the non-causal form over the 6400 patches' keys,
+   the contiguous decode kernel over cross rows of 6400 slots (the
+   kernels line's ``<name>_g8`` entries), and its cross and self decode
+   paged and as rows.  Then recurrentgemma-9b (38 layers),
+   xlstm-1.3b (48) and llama-3.2-vision-90b (``repro_torch.configs.
+   llama_3_2_vision_90b.ONE_CARD_LAYERS`` = 25 of its 100 layers: 100 are
+   ~175 GB of bf16 weights) at their published widths, each built from
+   SEED on the card and freed before the next (the vlm's cross-attention
+   gates set to 1.0): 4 prompts (64-2300 tokens; recurrentgemma's longest
+   crosses W) prefilled one by one, then 32 greedy decode steps of the
+   4 rows as one batch (``Model.init_cache(fill=[...])``), with every
+   launch counter set to 0 just before and read just after.  Every logit
+   must be finite, the path's kernels must launch (recurrentgemma: rows 3w
+   and 2cr at hd 256; the vlm: rows 3, 3n and 2c), a second run must give
+   the same tokens and logits, and for the vlm other patches must move the
+   prefill logits.  Last, each ``-smoke`` twin on the card against the
+   CPU, as in 7.
 9. fused — the reference's fused-op entry point (``kernels/ops.py``):
    first its two kernels on the wgmma body, swiglu and rmsnorm_matmul,
    at the full widths of the products they fuse (stablelm-1.6b's MLP at
@@ -192,8 +221,8 @@ both are printed.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.  Each phase prints its
-seconds.  ``--phases`` runs a subset (engine, configs and whisper need
-kernels, serving needs kernels and engine, mixtral needs rolling,
+seconds.  ``--phases`` runs a subset (engine, configs, whisper and
+families need kernels, serving needs kernels and engine, mixtral needs rolling,
 contiguous needs both, fused needs none;
 its engine runs follow the engine and mixtral phases when they run) and
 prints no result line.
@@ -1540,23 +1569,30 @@ def _split_decode_cases(dev):
     paged and as rows (table width nb * bs = row width S): over rows the
     kernel must give the paged kernel's bits (one fold order).  These
     launches do not count."""
-    import torch
-    from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels._paged import DECODE_SPLIT as L
-    from repro_torch.models.attention import gather_paged_cache
     gen = np.random.default_rng(SEED + 11)
-    wrappers = (kda.paged_decode_attention, kda.contiguous_decode_attention,
-                kda.paged_decode_attention_rolling,
-                kda.contiguous_decode_attention_rolling)
-    launches = [w.launches for w in wrappers]
     edges = [0, L - 1, L, 2 * L - 1, 2 * L]
-    cases = [
+    _split_pairs(gen, dev, [
         ("glm4-9b widths", 32, 2, 128, 0,
          [0, L - 1, L, 639, *(gen.integers(100, 640, 4) - 1)]),
         ("stablelm widths, split edges", 32, 32, 64, 0, edges + [63, 64, 639]),
         ("mixtral widths, split edges", 32, 8, 128, 4096,
          edges + [4095, 4096, 8999]),
-    ]
+    ])
+
+
+def _split_pairs(gen, dev, cases):
+    """Each case (label, H, Kv, hd, W or 0, decode positions) as one
+    logical cache, paged and as rows: the bf16 split decode kernels held
+    against their plain versions, and over rows the paged kernel's bits.
+    These launches do not count."""
+    import torch
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.models.attention import gather_paged_cache
+    wrappers = (kda.paged_decode_attention, kda.contiguous_decode_attention,
+                kda.paged_decode_attention_rolling,
+                kda.contiguous_decode_attention_rolling)
+    launches = [w.launches for w in wrappers]
     for label, h, kv, hd, window, pos in cases:
         pos = np.asarray(pos, np.int64)
         b = len(pos)
@@ -2852,6 +2888,451 @@ def phase_whisper(dev, kernels, card):
                              f"the CPU")
 
 
+# recurrentgemma-9b's attention widths: H 16 over Kv 1 (g 16), hd 256, and
+# its local-attention window
+RG = (16, 1, 256)
+RG_WINDOW = 2048
+
+
+def _families_kernels(dev, card):
+    """Rows 3w and 2cr at recurrentgemma-9b's widths (H 16, Kv 1, hd 256,
+    W 2048; both bodies keep Q in shared memory at hd 256): the flash
+    kernel's window band over one 2300-token prompt (the families phase's
+    longest), then at S 65 and at W 64 over 397 positions, and the
+    non-causal form at hd 256; the contiguous rolling decode kernel over
+    the phase's 4 rows (contexts 64-2300) and at W 64; each held against
+    its plain version in fp32 and timed on the device beside its bound and
+    SDPA with ``enable_gqa`` (a yardstick): the kernels line's
+    ``flash_attention_windowed_hd256`` and
+    ``contiguous_decode_attention_rolling_hd256``.  Then the four bf16
+    decode modes at hd 256 on the split edges, paged and as rows (rows ==
+    pages bit for bit), and the ptxas lines of the hd-256 kernels.  These
+    launches do not count."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels._paged import DECODE_SPLIT as L
+    from repro_torch.launch.kernel_report import ptxas_lines
+    h, kv, hd = RG
+    gen = np.random.default_rng(SEED + 15)
+    results = []
+
+    entry = None
+    for b, s, window in ((1, 2300, RG_WINDOW), (2, 65, RG_WINDOW),
+                         (2, 397, 64)):
+        q, k, v = (torch.tensor(gen.standard_normal((b, s, n, hd), np.float32),
+                                device=dev).to(torch.bfloat16)
+                   for n in (h, kv, kv))
+        args = [q, k, v, torch.arange(s, dtype=torch.int32, device=dev)]
+        kw = {"window": window, "kv_block": min(512, window)}
+        err = _held("flash_attention_windowed_hd256", kfa.flash_attention,
+                    kfa.flash_attention_plain, args,
+                    f"B={b} S={s} W={window} H={h} Kv={kv} hd={hd}", **kw)
+        if entry is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            continue
+        plain_ms = _time_ms(lambda: kfa.flash_attention_plain(*args, **kw),
+                            reps=3, warmup=1)
+        i = torch.arange(s, device=dev)
+        band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms, call_ms, lib_ms = _tiled_times(
+            kfa.flash_attention, lambda: kfa.flash_attention(*args, **kw),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True))
+        pairs = int(np.minimum(np.arange(s) + 1, window).sum())
+        n_bytes = 2 * b * s * (2 * h + 2 * kv) * hd + 4 * s
+        entry = _entry("flash_attention_windowed_hd256",
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:80 (window band;"
+                       " the reference's local_attention, "
+                       "transformer.py:302-303)",
+                       err, ms, plain_ms,
+                       _roofline(n_bytes, 4 * hd * h * b * pairs), lib_ms,
+                       card, call_ms)
+    results.append((kfa.flash_attention, entry))
+    q, k, v = (torch.tensor(gen.standard_normal((2, n, m, hd), np.float32),
+                            device=dev).to(torch.bfloat16)
+               for n, m in ((100, h), (300, kv), (300, kv)))
+    _held("flash_attention_noncausal", kfa.flash_attention_noncausal,
+          functools.partial(kfa.flash_attention_plain, causal=False),
+          [q, k, v], f"B=2 Sq=100 Skv=300 H={h} Kv={kv} hd={hd}")
+
+    name = "contiguous_decode_attention_rolling"
+    kernel, plain = (kda.contiguous_decode_attention_rolling,
+                     kda.contiguous_decode_attention_plain)
+    row_perm = gen.permutation(ROWS)
+    dec = [(p, 1) for p in (2299, 1023, 299, 63)]
+    entry = None
+    for window in (RG_WINDOW, 64):
+        case = _row_rolling_case(gen, dec, window, row_perm, h, kv, hd, dev)
+        args = [case["q"], case["k"], case["v"], case["rows"],
+                case["positions"]]
+        kw = {"window": window}
+        pl = lambda *a, **_: plain(*a, rolling_window=window)
+        err = _held(name, kernel, pl, args,
+                    f"W={window} B=4 contexts 64-2300 H={h} Kv={kv} hd={hd}",
+                    **kw)
+        if entry is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            continue
+        plain_ms = _time_ms(lambda: pl(*args), reps=3, warmup=1)
+        vis = np.minimum(case["np"]["pos"] + 1, window)
+        n_bytes = (int(vis.sum()) * kv * hd * 2 * 2 + 2 * len(dec) * h * hd * 2
+                   + 4 * 2 * len(dec))
+        kg, vg = (x.transpose(1, 2) for x in _row_views(case))
+        idx = torch.arange(window, device=dev)
+        m4 = (idx[None] < torch.tensor(vis, device=dev)[:, None])
+        q4 = case["q"][:, :, None]                       # [B, H, 1, hd]
+        ms, call_ms, lib_ms = _tiled_times(
+            kernel, lambda: kernel(*args, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=m4[:, None, None], enable_gqa=True))
+        del kg, vg
+        entry = _entry(f"{name}_hd256",
+                       "src/repro_torch/csrc/decode_attention.cu",
+                       "src/repro/kernels/decode_attention.py:72 (contiguous "
+                       "rolling mode: the reference runs jnp decode_attention"
+                       "(rolling_window), transformer.py:166)",
+                       err, ms, plain_ms,
+                       _roofline(n_bytes, 4 * h * hd * int(vis.sum())),
+                       lib_ms, card, call_ms)
+    results.append((kernel, entry))
+
+    edges = [0, L - 1, L, 2 * L - 1, 2 * L]
+    _split_pairs(gen, dev, [
+        ("recurrentgemma widths, split edges", h, kv, hd, 0, edges + [2299]),
+        ("recurrentgemma widths, rolling split edges", h, kv, hd, RG_WINDOW,
+         edges + [RG_WINDOW - 1, RG_WINDOW, 2299])])
+    for source in ("flash_attention", "decode_attention"):
+        for fn, regs, stores, loads in ptxas_lines(_build.build_log(source)):
+            if "ILi256E" in fn:            # the hd-256 template instances
+                print(f"kernel hd 256 {source}: {fn}: {regs} registers, "
+                      f"{stores} bytes spill stores, {loads} bytes spill "
+                      f"loads", flush=True)
+    return results
+
+
+# llama-3.2-vision-90b's attention widths: H 64 over Kv 8 (g 8), hd 128
+VLM = (64, 8, 128)
+
+
+def _vlm_kernels(dev, card):
+    """Rows 3, 3n and 2c at llama-3.2-vision-90b's shapes (H 64, Kv 8:
+    g 8; hd 128; 6400 patch keys), as its model-API path runs them: the
+    causal flash kernel over one 1024-token prompt (the phase's longest;
+    prompts are prefilled one by one) and over B 2, S 397; the non-causal
+    form, a prompt's queries against the 6400 patches' keys, at Sq 1024
+    and at B 2, Sq 65; the contiguous decode kernel over 4 cross rows of
+    6400 slots, every row at position 6399 (12.5 split chunks), each held
+    against its plain version in fp32 and timed on the device beside its
+    bound and SDPA with ``enable_gqa`` (a yardstick): the kernels line's
+    ``flash_attention_g8``, ``flash_attention_noncausal_g8`` and
+    ``contiguous_decode_attention_g8``, whose launches the vlm's greedy
+    run fills in (self and cross decode for the last).  Then the cross
+    decode and the self decode (rows of 1056 slots: the longest prompt and
+    32 steps) paged and as rows: both bf16 decode kernels held, rows ==
+    pages bit for bit.  These launches do not count."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.transformer import cfg_n_patches
+    h, kv, hd = VLM
+    n_patches = cfg_n_patches(get_config("llama-3.2-vision-90b"))
+    gen = np.random.default_rng(SEED + 19)
+    rand = lambda *shape: torch.tensor(gen.standard_normal(shape, np.float32),
+                                       device=dev).to(torch.bfloat16)
+    results = []
+
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    for name, kernel, plain, causal, cases in (
+            ("flash_attention", kfa.flash_attention, kfa.flash_attention_plain,
+             True, ((1, 1024, 1024), (2, 397, 397))),
+            ("flash_attention_noncausal", kfa.flash_attention_noncausal,
+             functools.partial(kfa.flash_attention_plain, causal=False),
+             False, ((1, 1024, n_patches), (2, 65, n_patches)))):
+        entry = None
+        for b, sq, skv in cases:
+            q, k, v = rand(b, sq, h, hd), rand(b, skv, kv, hd), \
+                rand(b, skv, kv, hd)
+            args = [q, k, v]
+            if causal:
+                args.append(torch.arange(sq, dtype=torch.int32, device=dev))
+            err = _held(name, kernel, plain, args,
+                        f"vlm B={b} Sq={sq} Skv={skv} H={h} Kv={kv} hd={hd}")
+            if entry is not None:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                continue
+            plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            ms, call_ms, lib_ms = _tiled_times(
+                kernel, lambda: kernel(*args),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+            pairs = sq * (sq + 1) // 2 if causal else sq * skv
+            entry = _entry(f"{name}_g8", src,
+                           "src/repro/kernels/flash_attention.py:80"
+                           + ("" if causal else " (causal=False: the vlm's "
+                              "cross-attention prefill over the patches)"),
+                           err, ms, plain_ms,
+                           _flash_bound(b, sq, skv, h, kv, hd, pairs,
+                                        causal=causal), lib_ms, card,
+                           call_ms)
+        results.append((kernel, entry))
+
+    name = "contiguous_decode_attention"
+    kernel, plain = (kda.contiguous_decode_attention,
+                     kda.contiguous_decode_attention_plain)
+    case = _row_case(gen, [n_patches - 1] * 4, np.arange(4),
+                     gen.permutation(ROWS)[:4], n_patches, h, kv, hd, dev)
+    args = [case["q"], case["k"], case["v"], case["rows"], case["positions"]]
+    err = _held(name, kernel, plain, args,
+                f"vlm cross decode: B=4 rows of S={n_patches}, every row at "
+                f"{n_patches - 1}, H={h} Kv={kv} hd={hd}")
+    plain_ms = _time_ms(lambda: plain(*args), reps=3, warmup=1)
+    q4, k4, v4, m4 = _sdpa_args(case, h, hd, True, views=_row_views(case))
+    ms, call_ms, lib_ms = _tiled_times(
+        kernel, lambda: kernel(*args),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                               enable_gqa=True))
+    del q4, k4, v4, m4
+    results.append((kernel, _entry(
+        f"{name}_g8", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:72 (the vlm's cross decode: "
+        "the reference's unmasked decode_attention over the patches)",
+        err, ms, plain_ms, _bound(case, h, hd), lib_ms, card, call_ms)))
+    del case, args
+
+    _split_pairs(gen, dev, [
+        ("llama-3.2-vision-90b cross decode", h, kv, hd, 0,
+         [n_patches - 1] * 4),
+        ("llama-3.2-vision-90b self decode", h, kv, hd, 0,
+         [1055, 543, 231, 95])])
+    return results
+
+
+# the three families the engine does not serve, in the reference's order,
+# with their prompt lengths (B 4): recurrentgemma's longest crosses W
+# (2048), so the window bites at prefill and decode; two of xLSTM's leave
+# a short last mLSTM chunk (CHUNK 128: 641 = 5 * 128 + 1, 255 = 128 + 127)
+FAMILY_PROMPTS = (("recurrentgemma-9b", (2300, 1024, 300, 64)),
+                  ("xlstm-1.3b", (1024, 641, 255, 64)),
+                  ("llama-3.2-vision-90b", (1024, 512, 200, 64)))
+FAMILY_STEPS = 32
+
+
+def _family_model(arch, dev, depth=None):
+    """The model of ``arch`` (its first ``depth`` layers, if given) with
+    weights from SEED on ``dev``; a vlm's cross-attention gates set to 1.0
+    (their init, zeros, would hide the patches: tanh(0) = 0)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    if cfg.family == "vlm":
+        params["stacks"]["blocks"]["cross"]["attn"]["gate"].fill_(1.0)
+    return model, params
+
+
+def _family_greedy(model, params, prompts, patches, n_steps, tokens=None):
+    """Each prompt prefilled alone (B 1; its patches [1, P, d] for a vlm),
+    the caches gathered into one batch (``Model.init_cache(fill=[...])``),
+    then ``n_steps`` greedy decode steps of the batch, row b at positions
+    len(prompt b) + i (``tokens``, [B, n_steps], feeds fixed tokens
+    instead).  Returns every step's logits [1 + n_steps, B, V], the decode
+    tokens [B][n_steps], and the prefill and decode seconds."""
+    import torch
+    dev = params["embed"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.monotonic()
+    first, fills = [], []
+    for i, p in enumerate(prompts):
+        batch = {"tokens": p[None]}
+        if patches is not None:
+            batch["patches"] = patches[i:i + 1]
+        lg, cache = model.prefill(params, batch)
+        first.append(lg)
+        fills.append(cache)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    cache = model.init_cache(len(prompts), int(lens.max()) + n_steps,
+                             device=dev, dtype=params["embed"].dtype,
+                             fill=fills)
+    del fills
+    sync()
+    t1 = time.monotonic()
+    steps, out = [torch.cat(first)], []
+    tok = steps[0].argmax(-1).to(torch.int32)
+    for i in range(n_steps):
+        if tokens is not None:
+            tok = tokens[:, i]
+        lg, cache = model.decode(params, cache, {"token": tok,
+                                                 "positions": lens + i})
+        steps.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+    sync()
+    t2 = time.monotonic()
+    return (torch.stack(steps).float().cpu(),
+            torch.stack(out, 1).cpu().tolist(), t1 - t0, t2 - t1)
+
+
+def _family_inputs(cfg, lengths, gen, dev):
+    """Prompt tokens of the given lengths and, for a vlm, patch embeddings
+    [B, P, d] (bf16)."""
+    import torch
+    from repro_torch.models.transformer import cfg_n_patches
+    prompts = [torch.tensor(gen.integers(2, cfg.vocab_size, n),
+                            dtype=torch.int32, device=dev) for n in lengths]
+    patches = None
+    if cfg.family == "vlm":
+        patches = torch.tensor(gen.standard_normal(
+            (len(lengths), cfg_n_patches(cfg), cfg.d_model), np.float32),
+            device=dev).to(torch.bfloat16)
+    return prompts, patches
+
+
+def phase_families(dev, kernels, card):
+    """The hybrid, ssm and vlm families through the port's model API
+    (``build_model(cfg).prefill`` / ``.decode``; the engine does not serve
+    them): first rows 3w and 2cr at hd 256 (``_families_kernels``) and
+    rows 3, 3n and 2c at the vlm's g 8 over its 6400 patches
+    (``_vlm_kernels``); then
+    recurrentgemma-9b (38 layers), xlstm-1.3b (48) and llama-3.2-vision-90b
+    (``ONE_CARD_LAYERS`` of 100) at their published widths, each built from
+    SEED on the card and freed before the next: B = 4 prompts prefilled
+    apart and 32 greedy decode steps as one batch, every launch counter set
+    to 0 just before and read just after; every logit finite, the path's
+    kernels launched (recurrentgemma: the flash window band and the
+    contiguous rolling decode kernel; the vlm: causal and non-causal flash
+    and the contiguous decode kernel; xLSTM runs none), a second run the
+    same tokens and logits, and for the vlm other patches other prefill
+    logits.  Last, each ``-smoke`` twin on the card against the CPU,
+    prefill and 4 decode steps on fixed tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.llama_3_2_vision_90b import ONE_CARD_LAYERS
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.stacked import tree_map
+
+    kernels.extend(_families_kernels(dev, card) + _vlm_kernels(dev, card))
+    entries = {e["name"]: e for _, e in kernels}
+    paths = {"recurrentgemma-9b": (kfa.flash_attention,
+                                   kda.contiguous_decode_attention_rolling),
+             "xlstm-1.3b": (),
+             "llama-3.2-vision-90b": (kfa.flash_attention,
+                                      kfa.flash_attention_noncausal,
+                                      kda.contiguous_decode_attention)}
+    gen = np.random.default_rng(SEED + 16)
+    for arch, lengths in FAMILY_PROMPTS:
+        depth = ONE_CARD_LAYERS if arch == "llama-3.2-vision-90b" else None
+        t0 = time.monotonic()
+        model, params = _family_model(arch, dev, depth)
+        cfg = model.cfg
+        torch.cuda.synchronize()
+        print(f"families: {arch} ({cfg.family}) L={cfg.num_layers} "
+              f"d={cfg.d_model} H={cfg.num_heads} Kv={cfg.num_kv_heads} "
+              f"hd={cfg.resolved_head_dim} vocab={cfg.vocab_size}: init "
+              f"{time.monotonic() - t0:.1f}s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+        prompts, patches = _family_inputs(cfg, lengths, gen, dev)
+        path = paths[arch]
+        counters = ({k for k, _ in kernels}
+                    | {kfa.flash_attention, kfa.flash_attention_noncausal,
+                       kda.contiguous_decode_attention,
+                       kda.contiguous_decode_attention_rolling})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters:
+            k.launches = 0
+        logits, stream, pre_s, dec_s = _family_greedy(
+            model, params, prompts, patches, FAMILY_STEPS)
+        launches = {k.__name__: k.launches for k in counters}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"families {arch} greedy: prompts {list(lengths)}, new tokens "
+              f"{[len(x) for x in stream]}, launches "
+              f"{ {n: c for n, c in launches.items() if c} }, first row "
+              f"{stream[0][:8]}...", flush=True)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: a logit is not finite")
+        for k in path:
+            if launches[k.__name__] <= 0:
+                raise AssertionError(f"{k.__name__} never launched on the "
+                                     f"{arch} path")
+        if not path and any(launches.values()):
+            raise AssertionError(f"{arch}: an attention kernel launched")
+        if arch == "recurrentgemma-9b":
+            entries["flash_attention_windowed_hd256"]["launches"] = \
+                launches["flash_attention"]
+            entries["contiguous_decode_attention_rolling_hd256"][
+                "launches"] = launches["contiguous_decode_attention_rolling"]
+        if arch == "llama-3.2-vision-90b":
+            for k in path:
+                entries[f"{k.__name__}_g8"]["launches"] = launches[k.__name__]
+        again = _family_greedy(model, params, prompts, patches, FAMILY_STEPS)
+        print(f"families {arch}: a second run gives the same tokens: "
+              f"{again[1] == stream}, the same logits: "
+              f"{torch.equal(again[0], logits)}", flush=True)
+        if again[1] != stream or not torch.equal(again[0], logits):
+            raise AssertionError(f"{arch}: two identical runs differ")
+        if patches is not None:
+            other = torch.randn(patches[:1].shape, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 17), device=dev).to(
+                patches.dtype)
+            moved = float((model.prefill(params, {
+                "tokens": prompts[0][None], "patches": other})[0].float()
+                .cpu() - logits[0, :1]).abs().max())
+            print(f"families {arch}: other patches move the prefill logits "
+                  f"by up to {moved:.4f}", flush=True)
+            if not moved > 0:
+                raise AssertionError(f"{arch}: the patches do not reach the "
+                                     f"logits")
+        b, n = len(prompts), FAMILY_STEPS
+        for label, p_s, d_s in (("first run", pre_s, dec_s),
+                                ("second run", *again[2:])):
+            print(f"families {arch} {label}: prefill {p_s * 1e3:.3f} ms "
+                  f"({sum(lengths)} tokens, rows apart), decode step "
+                  f"{d_s / n * 1e3:.3f} ms, {b * n / (p_s + d_s):.2f} tok/s "
+                  f"(B = {b}, {n} steps), peak memory {peak / 2**30:.2f} GiB "
+                  f"on {card}", flush=True)
+        del model, params, prompts, patches, logits, again
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the smoke configs on the card against the CPU, on fixed tokens
+    for arch, _ in FAMILY_PROMPTS:
+        gen = np.random.default_rng(SEED + 18)
+        model, params = _family_model(arch + "-smoke", "cpu")
+        prompts, patches = _family_inputs(model.cfg, (40, 23), gen, "cpu")
+        tokens = torch.tensor(gen.integers(2, model.cfg.vocab_size, (2, 4)),
+                              dtype=torch.int32)
+        a = _family_greedy(model, params, prompts, patches, 4, tokens)[0]
+        to_dev = lambda x: None if x is None else x.to(dev)
+        c = _family_greedy(model, tree_map(to_dev, params),
+                           [to_dev(p) for p in prompts], to_dev(patches), 4,
+                           to_dev(tokens))[0]
+        err = float((a - c).abs().max())
+        print(f"families {arch}-smoke prefill+4 decode steps: logits card "
+              f"vs CPU max_abs_err={err:.3e} (tol {LOGIT_TOL}), shape "
+              f"{tuple(c.shape)}", flush=True)
+        if not bool(torch.isfinite(c).all()) or not err <= LOGIT_TOL:
+            raise AssertionError(f"{arch}-smoke: logits on the card disagree "
+                                 f"with the CPU")
+
+
 # the fused-product kernels' checks, (T, d, ff or F, where the shape comes
 # from); the first of each list is the kernel's entry in the kernels line
 # the wgmma body's edges follow: token tiles of 8, 16, 32 (T 17), 64 and
@@ -3060,7 +3541,7 @@ def phase_fused(dev, card):
 
 
 PHASES = ("kernels", "rolling", "engine", "serving", "mixtral", "configs",
-          "contiguous", "reference", "whisper", "fused")
+          "contiguous", "reference", "whisper", "families", "fused")
 
 
 def main(argv=None) -> int:
@@ -3076,8 +3557,9 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if "serving" in phases and not {"kernels", "engine"} <= set(phases):
         ap.error("the serving phase needs the kernels and engine phases")
-    if "configs" in phases and "kernels" not in phases:
-        ap.error("the configs phase needs the kernels phase")
+    for phase in ("configs", "families"):
+        if phase in phases and "kernels" not in phases:
+            ap.error(f"the {phase} phase needs the kernels phase")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3138,6 +3620,8 @@ def main(argv=None) -> int:
         timed("reference", phase_reference, dev)
     if "whisper" in phases:
         timed("whisper", phase_whisper, dev, kernels, card)
+    if "families" in phases:
+        timed("families", phase_families, dev, kernels, card)
     if "fused" in phases:
         kernels += timed("fused", phase_fused, dev, card)
     print(f"chip_smoke: {time.monotonic() - t0:.1f}s total", flush=True)

@@ -1,7 +1,6 @@
 """Architecture registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-Only the architectures the port serves are listed; the others stay in the
-reference package until their model family is ported (ROADMAP.md).
+Every architecture of the reference's registry, in its order.
 """
 from __future__ import annotations
 
@@ -17,6 +16,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "minicpm-2b": "minicpm_2b",
     "glm4-9b": "glm4_9b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "whisper-small": "whisper_small",
 }
 

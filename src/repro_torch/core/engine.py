@@ -71,8 +71,6 @@ from repro_torch.models.registry import Model
 from repro_torch.models.stacked import run_stack, tree_map
 from repro_torch.runtime.paged_kv import BlockSpaceManager
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1)"
-
 
 # ---------------------------------------------------------------------------
 # Stage splitting
@@ -520,8 +518,10 @@ class PPEngineBase:
                 "('auto', 'contiguous', 'paged')")
         if self.arch.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {self.arch.family!r} {_NOT_PORTED}; the port "
-                "serves the dense and moe families")
+                f"family {self.arch.family!r} runs through the model API "
+                "(build_model(cfg).prefill / .decode); the reference's "
+                "engine does not serve it, and this one serves the dense "
+                "and moe families")
         if cfg.kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, "
                              f"got {cfg.kv_block_size}")

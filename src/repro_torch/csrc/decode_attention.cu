@@ -96,7 +96,7 @@ bool shapes_ok(int H, int Kv, int split) {
 // positions [B] int32; ws: B * Kv * n_split * g * (hd + 2) fp32, n_split =
 // ceil(width / split), width = nb * bs (min(nb * bs, W) when rolling);
 // out [B, H*hd] bf16.  split must be splitk::kChunk, hd in {16, 32, 64,
-// 128}, g = H / Kv at most 16, the pointers 16-byte aligned.
+// 128, 256}, g = H / Kv at most 16, the pointers 16-byte aligned.
 extern "C" int paged_decode_attention(const void* q, const void* k_cache,
                                       const void* v_cache, const void* tables,
                                       const void* positions, void* ws,
@@ -129,6 +129,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_cache,
     DECODE_PAGED(32)
     DECODE_PAGED(64)
     DECODE_PAGED(128)
+    DECODE_PAGED(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DECODE_PAGED
@@ -177,6 +178,7 @@ extern "C" int contiguous_decode_attention(const void* q, const void* k_cache,
     DECODE_ROWS(32)
     DECODE_ROWS(64)
     DECODE_ROWS(128)
+    DECODE_ROWS(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DECODE_ROWS

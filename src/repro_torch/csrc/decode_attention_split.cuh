@@ -63,7 +63,10 @@
 // paged and contiguous kernels give identical bits whenever the table's
 // width nb * bs equals the row width S, and SiPipe and Naive fold alike.  No
 // float atomics: two launches repeat bit for bit.  Instantiated for hd in
-// {16, 32, 64, 128}; 1 <= g <= 16 at run time.
+// {16, 32, 64, 128, 256}; 1 <= g <= 16 at run time.  At hd 256
+// (recurrentgemma-9b, row 2cr) the query tile stays in shared memory and
+// its fragments are re-read at every k-step (tiled::QShared), and a block
+// takes ~142 KB of shared memory: one block an SM.
 #pragma once
 
 #include <cassert>
@@ -237,7 +240,11 @@ __device__ __forceinline__ void fold_chunk(Src src,
     tiled::cp_async_commit();
   }
 
-  uint32_t qa[HD / 16][4];
+  // hd 256 re-reads its Q fragments from shared memory at every k-step
+  // (tiled::QShared): held, they would spill beside the accumulator
+  constexpr bool kQShared = HD > 128;
+  uint32_t qa[kQShared ? 1 : HD / 16][4];
+  const tiled::QShared<LD> qs{sq, lane};
   float o[HD / 8][4];
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -252,11 +259,11 @@ __device__ __forceinline__ void fold_chunk(Src src,
       stage<HD>(src, c0 + nx * kSlots, c1, sk + (nx % kStages) * L::TILE,
                 sv + (nx % kStages) * L::TILE);
     tiled::cp_async_commit();
-    if (it == 0) {
+    if constexpr (!kQShared) {
+      if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        tiled::ldsm_x4(qa[ks], sq + (lane & 15) * LD + ks * 16 +
-                                   ((lane >> 4) << 3));
+        for (int ks = 0; ks < HD / 16; ++ks) qs.get(ks, qa[ks]);
+      }
     }
     const int s0 = c0 + it * kSlots + warp * 16;  // this warp's 16 slots
     if (s0 >= c1) continue;  // none visible: the state stays as it is
@@ -269,11 +276,15 @@ __device__ __forceinline__ void fold_chunk(Src src,
     for (int i = 0; i < 2; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t b[4];
+      uint32_t b[4], a[4];
+      if constexpr (kQShared)
+        qs.get(ks, a);
+      else
+        tiled::QRegs<HD>{qa}.get(ks, a);
       tiled::ldsm_x4(b, tk + (((lane >> 4) << 3) + (lane & 7)) * LD +
                             ks * 16 + (((lane >> 3) & 1) << 3));
-      tiled::mma(s[0], qa[ks], b[0], b[1]);
-      tiled::mma(s[1], qa[ks], b[2], b[3]);
+      tiled::mma(s[0], a, b[0], b[1]);
+      tiled::mma(s[1], a, b[2], b[3]);
     }
 
     // the online softmax of this warp's slots, per query row

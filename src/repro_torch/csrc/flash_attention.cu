@@ -59,8 +59,15 @@
 //   5. Determinism: kv tiles are folded from low to high, no atomics and no
 //      split-K, so two launches repeat bit for bit.
 //
+//   6. hd 256 (recurrentgemma-9b's local attention, row 3w): the same
+//      body with its query rows kept in shared memory and their fragments
+//      re-read at every k-step (tiled::QShared; held, Q's 64 words a thread
+//      beside O's 128 would spill), ~165 KB of shared memory: one block an
+//      SM.
+//
 // Full-rate Hopper products (wgmma fed by TMA, warp specialisation) are
-// the step beyond this body.  Instantiated for hd in {16, 32, 64, 128};
+// the step beyond this body.  Instantiated for hd in {16, 32, 64, 128,
+// 256};
 // g = H / Kv in 1..16 is a runtime tiled::Group (at g 5 a block is 12
 // positions x 5 heads, and its 4 other rows are idle).
 #include <climits>
@@ -179,7 +186,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_lo = lo / kKeys;
   const int n_items = hi > lo ? (hi + kKeys - 1) / kKeys - t_lo : 0;
 
-  uint32_t qa[HD / 16][4];
+  // hd 256 re-reads its Q fragments from shared memory at every k-step
+  // (tiled::QShared): held, they would spill beside the accumulator
+  constexpr bool kQShared = HD > 128;
+  uint32_t qa[kQShared ? 1 : HD / 16][4];
   float o[HD / 8][4];
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -197,7 +207,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tiled::cp_async_commit();
     tiled::cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) tiled::load_q<HD, LD>(qa, sq, warp, lane);
+    if constexpr (!kQShared)
+      if (it == 0) tiled::load_q<HD, LD>(qa, sq, warp, lane);
     // every row sees every key of the tile: no mask (block-uniform)
     bool full = s0 + kKeys <= Skv;
     if (causal)
@@ -213,8 +224,13 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                (!causal || (kp <= rpos && (!window || kp > rpos - window)));
       };
     };
-    tiled::fold_tile<HD, LD>(qa, sk + buf * L::TILE, sv + buf * L::TILE, full,
-                             c2, row_mask, m, l, o, lane);
+    if constexpr (kQShared)
+      tiled::fold_tile_q<HD, LD>(tiled::QShared<LD>{sq + warp * 16 * LD, lane},
+                                 sk + buf * L::TILE, sv + buf * L::TILE, full,
+                                 c2, row_mask, m, l, o, lane);
+    else
+      tiled::fold_tile<HD, LD>(qa, sk + buf * L::TILE, sv + buf * L::TILE,
+                               full, c2, row_mask, m, l, o, lane);
     __syncthreads();  // this stage is consumed before it is refilled
   }
   tiled::cp_async_wait<0>();
@@ -262,8 +278,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q [B, Sq, H, hd], k/v [B, Skv, Kv, hd] bf16, 16-byte aligned; q_pos [Sq]
 // int32 (read only when causal; may be null otherwise); out [B, Sq, H*hd]
-// bf16.  hd must be 16, 32, 64 or 128 and H / Kv in 1..16; a window needs
-// the causal form.
+// bf16.  hd must be 16, 32, 64, 128 or 256 and H / Kv in 1..16; a window
+// needs the causal form.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, void* out, int B, int Sq,
                                int Skv, int H, int Kv, int hd, int causal,
@@ -278,6 +294,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 32: return (int)launch<32>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
     case 64: return (int)launch<64>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
     case 128: return (int)launch<128>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
+    case 256: return (int)launch<256>(q, k, v, q_pos, out, B, Sq, Skv, H, Kv, grp, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

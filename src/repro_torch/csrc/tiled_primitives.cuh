@@ -153,6 +153,29 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4],
                         ((lane >> 4) << 3));
 }
 
+// Where a warp's Q fragment for k-step ks (16 dims of its 16 query rows)
+// comes from.  QRegs: registers loaded once (load_q), hd up to 128.
+// QShared: the rows' padded [16][LD] copy in shared memory, re-read with
+// ldmatrix at every k-step; at hd 256 the held fragments (64 words a
+// thread) beside the accumulator's 128 would spill.
+template <int HD>
+struct QRegs {
+  const uint32_t (&qa)[HD / 16][4];
+  __device__ __forceinline__ void get(int ks, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qa[ks][i];
+  }
+};
+
+template <int LD>
+struct QShared {
+  const bf16* rows;  // the warp's first query row
+  int lane;
+  __device__ __forceinline__ void get(int ks, uint32_t (&a)[4]) const {
+    ldsm_x4(a, rows + (lane & 15) * LD + ks * 16 + ((lane >> 4) << 3));
+  }
+};
+
 // Folds one tile into the warp's running softmax (m, l: the thread's two
 // rows' max and sum, in log2 units; o: its accumulator fragments).
 //   S = Q K^T, 16 rows x 64 slots, on the tensor cores; scores times c2 =
@@ -165,24 +188,27 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4],
 //   misses the kernels' limit (2^-7 |plain| + 1e-5) at mixtral's widths
 //   by 17x (tests/test_torch_rolling_tiles.py).
 // The fold order is the call order; nothing here depends on other blocks.
-template <int HD, int LD, class RowMask>
-__device__ __forceinline__ void fold_tile(
-    const uint32_t (&qa)[HD / 16][4], const bf16* tk, const bf16* tv,
-    bool full, float c2, const RowMask& row, float (&m)[2], float (&l)[2],
-    float (&o)[HD / 8][4], int lane) {
+// fold_tile_q takes the Q fragments from `qsrc` (QRegs or QShared).
+template <int HD, int LD, class QSrc, class RowMask>
+__device__ __forceinline__ void fold_tile_q(
+    const QSrc& qsrc, const bf16* tk, const bf16* tv, bool full, float c2,
+    const RowMask& row, float (&m)[2], float (&l)[2], float (&o)[HD / 8][4],
+    int lane) {
   // S = Q K^T: 16 rows x 64 slots per warp
   float s[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t qa[4];
+    qsrc.get(ks, qa);
 #pragma unroll
     for (int nb2 = 0; nb2 < 4; ++nb2) {
       uint32_t b[4];
       ldsm_x4(b, tk + (nb2 * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD +
                      ks * 16 + (((lane >> 3) & 1) << 3));
-      mma(s[2 * nb2], qa[ks], b[0], b[1]);
-      mma(s[2 * nb2 + 1], qa[ks], b[2], b[3]);
+      mma(s[2 * nb2], qa, b[0], b[1]);
+      mma(s[2 * nb2 + 1], qa, b[2], b[3]);
     }
   }
 
@@ -263,6 +289,15 @@ __device__ __forceinline__ void fold_tile(
       mma(o[2 * nd2 + 1], al, b[2], b[3]);
     }
   }
+}
+
+// fold_tile_q with the warp's Q fragments held in registers (load_q).
+template <int HD, int LD, class RowMask>
+__device__ __forceinline__ void fold_tile(
+    const uint32_t (&qa)[HD / 16][4], const bf16* tk, const bf16* tv,
+    bool full, float c2, const RowMask& row, float (&m)[2], float (&l)[2],
+    float (&o)[HD / 8][4], int lane) {
+  fold_tile_q<HD, LD>(QRegs<HD>{qa}, tk, tv, full, c2, row, m, l, o, lane);
 }
 
 // The query group of the 64-row bodies (span, flash): g = H / Kv query

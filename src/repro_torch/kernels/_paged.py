@@ -107,20 +107,26 @@ def quant_flip_term(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
 # (tiled::Group)
 QUERY_ROWS = 64
 TILED_MAX_GROUP = 16                # g = H / Kv in 1..16
-TILED_WIDTHS = (16, 32, 64, 128)    # hd
+TILED_WIDTHS = (16, 32, 64, 128)    # hd of the span bodies, bf16 and int8
+# hd of the flash body (csrc/flash_attention.cu) and the bf16 split decode
+# body (csrc/decode_attention_split.cuh): TILED_WIDTHS and 256
+# (recurrentgemma-9b), where both keep Q in shared memory
+WIDE_WIDTHS = TILED_WIDTHS + (256,)
 
 
-def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
+def check_tiled(q: torch.Tensor, kv_heads: int, tensors,
+                widths=TILED_WIDTHS) -> None:
     """The tiled bodies' shapes, for a CUDA call (q [..., H, hd]): g = H /
-    Kv an integer in 1..TILED_MAX_GROUP, hd in TILED_WIDTHS, 16-byte
+    Kv an integer in 1..TILED_MAX_GROUP, hd in ``widths`` (the span
+    bodies' TILED_WIDTHS, or the flash body's WIDE_WIDTHS), 16-byte
     aligned data (cp.async).  Raises ValueError; the caller never falls
     back to the plain version."""
     h, hd = q.shape[-2], q.shape[-1]
     if kv_heads < 1 or h % kv_heads \
             or not 1 <= h // kv_heads <= TILED_MAX_GROUP \
-            or hd not in TILED_WIDTHS:
+            or hd not in widths:
         raise ValueError(f"the tiled kernels take g = H / Kv in "
-                         f"1..{TILED_MAX_GROUP} and hd in {TILED_WIDTHS}, "
+                         f"1..{TILED_MAX_GROUP} and hd in {widths}, "
                          f"got H = {h}, Kv = {kv_heads}, hd = {hd}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the tiled kernels need 16-byte aligned inputs")
@@ -130,20 +136,22 @@ def check_tiled(q: torch.Tensor, kv_heads: int, tensors) -> None:
 # (csrc/decode_attention_split.cuh, csrc/decode_attention_quant_split.cuh):
 # chunks of DECODE_SPLIT slots from slot 0 (the C entries refuse another
 # value), g = H / Kv up to 16 (the rows of one mma tile), hd in
-# TILED_WIDTHS
+# WIDE_WIDTHS (bf16) or TILED_WIDTHS (int8)
 DECODE_SPLIT = 512
 DECODE_MAX_GROUP = 16
 
 
-def check_decode_split(q: torch.Tensor, kv_heads: int, tensors) -> None:
-    """The split decode bodies' shapes, for a CUDA call (bf16 or int8): 1
-    <= g <= DECODE_MAX_GROUP, hd in TILED_WIDTHS, 16-byte aligned data
-    (cp.async, 16-byte loads).  Raises ValueError; the caller never falls
-    back to the plain version."""
+def check_decode_split(q: torch.Tensor, kv_heads: int, tensors,
+                       widths=TILED_WIDTHS) -> None:
+    """The split decode bodies' shapes, for a CUDA call: 1 <= g <=
+    DECODE_MAX_GROUP, hd in ``widths`` (the int8 body's TILED_WIDTHS, or
+    the bf16 body's WIDE_WIDTHS), 16-byte aligned data (cp.async, 16-byte
+    loads).  Raises ValueError; the caller never falls back to the plain
+    version."""
     h, hd = q.shape[1], q.shape[2]
-    if not 1 <= h // kv_heads <= DECODE_MAX_GROUP or hd not in TILED_WIDTHS:
+    if not 1 <= h // kv_heads <= DECODE_MAX_GROUP or hd not in widths:
         raise ValueError(f"the split decode kernel takes g = H / Kv in "
-                         f"1..{DECODE_MAX_GROUP} and hd in {TILED_WIDTHS}, "
+                         f"1..{DECODE_MAX_GROUP} and hd in {widths}, "
                          f"got g = {h // kv_heads}, hd = {hd}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the split decode kernel needs 16-byte aligned "

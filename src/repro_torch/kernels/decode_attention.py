@@ -11,7 +11,7 @@ CUDA kernels:
   folds each on the tensor cores in its own block and merges the chunks in
   order (a second kernel of the same C call, through a workspace the
   wrapper allocates); it takes g = H / Kv up to 16 and hd in {16, 32, 64,
-  128}, and raises ``ValueError`` on other CUDA shapes.
+  128, 256}, and raises ``ValueError`` on other CUDA shapes.
 - ``csrc/decode_attention_quant.cu`` has no TPU kernel before it: the
   reference runs the jnp ``decode_attention_quant`` on the gathered view
   (repro/models/transformer.py:110-133).  It reads the int8 cache through
@@ -19,7 +19,8 @@ CUDA kernels:
   the visible slots into the same chunks and computes the function in four
   grid-wide passes through a workspace the wrapper allocates
   (``_paged.quant_decode_workspace``), both products on the int8 tensor
-  cores; it takes the same shapes and raises ``ValueError`` on others.
+  cores; it takes the same shapes but hd 256 and raises ``ValueError``
+  on others.
 
 Both have a rolling mode for sliding-window models, whose cache keeps
 position p at slot p % W: the visible slots are 0..min(pos + 1, W) - 1
@@ -107,7 +108,8 @@ def _decode(wrapper, q, k_cache, v_cache, block_tables, positions, window):
     b, h, hd = q.shape
     n_blocks, bs, kv = k_cache.shape[:3]
     nb = block_tables.shape[1]
-    _paged.check_decode_split(q, kv, (q, k_cache, v_cache))
+    _paged.check_decode_split(q, kv, (q, k_cache, v_cache),
+                              widths=_paged.WIDE_WIDTHS)
     width = min(nb * bs, window) if window else nb * bs
     ws = torch.empty(_paged.decode_workspace(b, h, kv, hd, width),
                      dtype=torch.float32, device=q.device)
@@ -269,7 +271,8 @@ def _rows_decode(wrapper, q, k_cache, v_cache, rows, positions, window):
             q, k_cache, v_cache, rows, positions, rolling_window=window)
     b, h, hd = q.shape
     r, s, kv = k_cache.shape[:3]
-    _paged.check_decode_split(q, kv, (q, k_cache, v_cache))
+    _paged.check_decode_split(q, kv, (q, k_cache, v_cache),
+                              widths=_paged.WIDE_WIDTHS)
     width = min(s, window) if window else s
     ws = torch.empty(_paged.decode_workspace(b, h, kv, hd, width),
                      dtype=torch.float32, device=q.device)

@@ -35,7 +35,7 @@ from repro_torch.models.attention import chunked_attention, \
     cross_attention, local_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-HEAD_DIMS = _paged.TILED_WIDTHS      # the kernel's compiled head widths
+HEAD_DIMS = _paged.WIDE_WIDTHS       # the kernel's compiled head widths
 
 
 @functools.cache
@@ -119,7 +119,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the CUDA kernel takes bf16, got {q.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel needs contiguous inputs")
-    _paged.check_tiled(q, kv, (q, k, v))
+    _paged.check_tiled(q, kv, (q, k, v), widths=HEAD_DIMS)
     out = torch.empty((b, sq, h * hd), dtype=q.dtype, device=q.device)
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    q_positions.data_ptr() if causal else None,

@@ -1,6 +1,7 @@
 """Where the time of one engine iteration goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch stablelm-1.6b]
+        [--parts dense,mixtral,whisper,families]
 
 Splits a full-width model into two pipeline stages on one card (random
 weights from ``--seed``) and times the pieces an iteration is made of,
@@ -33,6 +34,17 @@ at the shapes of ``chip_smoke.py``'s whisper phase (B = 4 rows of 1500
 frames, a 4-token prompt, a 36-slot decode cache): one encoder layer,
 the whole encoder, the whole prefill (encoder, then the decoder over the
 prompt; the decoder's share is the difference) and one decode step.
+
+Then the hybrid, ssm and vlm families at their published widths, at the
+shapes of ``chip_smoke.py``'s families phase (each model built and freed
+in turn): for recurrentgemma-9b (38 layers) a 2300-token prefill (B 1,
+over W = 2048), one superblock of it (rglru, rglru, attn, each with its
+MLP), one RG-LRU block, its doubling scan alone and one local-attention
+block; for xlstm-1.3b (48) a 1024-token prefill, one sLSTM block (its
+token loop) and one mLSTM block (8 chunks of 128); for
+llama-3.2-vision-90b (25 of 100 layers) a 1024-token prefill over 6400
+patches, one cross-attention block and one self-attention layer; and
+for each a decode step of B 4 rows (contexts 64-2300).
 
 Every decode step above (stablelm's paged, rows and int8; mixtral's
 bf16 and int8) is timed a second time as a CUDA graph replay (" · graph"):
@@ -218,6 +230,102 @@ def profile_whisper(seed: int, reps: int, dev, results):
     torch.cuda.empty_cache()
 
 
+def profile_families(seed: int, reps: int, dev, results):
+    """The hybrid, ssm and vlm families' prefill, blocks and decode step
+    (the module docstring's last list)."""
+    from repro_torch.configs.llama_3_2_vision_90b import ONE_CARD_LAYERS
+    from repro_torch.models import hybrid, transformer, xlstm
+
+    def pos(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    for arch, s in (("recurrentgemma-9b", 2300), ("xlstm-1.3b", 1024),
+                    ("llama-3.2-vision-90b", 1024)):
+        cfg = get_config(arch)
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, num_layers=ONE_CARD_LAYERS)
+        model = build_model(cfg)
+        params = model.init(seed, device=dev)
+        if cfg.family == "vlm":
+            params["stacks"]["blocks"]["cross"]["attn"]["gate"].fill_(1.0)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = {"tokens": torch.randint(2, cfg.vocab_size, (1, s),
+                                         generator=gen, device=dev)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (1, transformer.cfg_n_patches(cfg), cfg.d_model),
+                generator=gen, device=dev).to(torch.bfloat16)
+        # the long prefills (the sLSTM token loop) take seconds: two reps
+        _piece(f"{arch} prefill (B=1, S={s}, {cfg.num_layers} layers)",
+               lambda: model.prefill(params, batch), 2, results,
+               profile=False)
+        x = torch.randn((1, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        group = tree_map(lambda w: w[0], params["stacks"]["blocks"])
+        cache = tree_map(lambda c: c[0],
+                         model.init_cache(1, s, device=dev)["blocks"])
+        ctx = model.make_ctx("prefill", pos(s), patches=batch.get("patches"))
+        if cfg.family == "hybrid":
+            _piece(f"{arch} one superblock prefill (S={s})",
+                   lambda: model.stacks["blocks"].apply(group, x, ctx, cache),
+                   reps, results)
+            _piece(f"{arch} one RG-LRU block prefill (S={s})",
+                   lambda: hybrid.rglru_block(group["l0"]["mix"], x, ctx,
+                                              cache["l0"], cfg),
+                   reps, results)
+            a = torch.rand((1, s, cfg.d_model), generator=gen, device=dev)
+            _piece(f"{arch} RG-LRU doubling scan alone ([1, {s}, "
+                   f"{cfg.d_model}] fp32)",
+                   lambda: hybrid.linear_scan(a, a), reps, results)
+            _piece(f"{arch} one local-attention block prefill (S={s}, "
+                   f"W={cfg.window}, hd {cfg.resolved_head_dim})",
+                   lambda: transformer.self_attn_block(
+                       group["l2"]["mix"], x, ctx, cache["l2"], cfg),
+                   reps, results)
+        elif cfg.family == "ssm":
+            _piece(f"{arch} one sLSTM block prefill (S={s}: a token loop)",
+                   lambda: xlstm.slstm_block(group["slstm"], x, ctx,
+                                             cache["slstm"], cfg),
+                   2, results, profile=False)
+            short = x[:, :128]
+            _piece(f"{arch} one sLSTM block prefill (S=128)",
+                   lambda: xlstm.slstm_block(group["slstm"], short, ctx,
+                                             cache["slstm"], cfg),
+                   reps, results)
+            one = tree_map(lambda w: w[0], group["mlstm"])
+            _piece(f"{arch} one mLSTM block prefill (S={s}, chunks of "
+                   f"{xlstm.CHUNK})",
+                   lambda: xlstm.mlstm_block(
+                       one, x, ctx, tree_map(lambda c: c[0],
+                                             cache["mlstm"]), cfg),
+                   reps, results)
+        else:
+            _piece(f"{arch} one cross-attention block prefill (S={s}, "
+                   f"{transformer.cfg_n_patches(cfg)} patches)",
+                   lambda: transformer.cross_attn_block(
+                       group["cross"]["attn"], x, ctx, cache["cross"], cfg),
+                   reps, results)
+            _piece(f"{arch} one self-attention layer prefill (S={s})",
+                   lambda: transformer.mlp_block(
+                       group["self0"]["ffn"], transformer.self_attn_block(
+                           group["self0"]["attn"], x, ctx, cache["self0"],
+                           cfg), cfg),
+                   reps, results)
+        del cache, group, x
+        lens = torch.tensor([2300, 1024, 300, 64], dtype=torch.int32,
+                            device=dev)
+        dcache = model.init_cache(4, 2300 + 32, device=dev)
+        step = {"token": torch.randint(2, cfg.vocab_size, (4,),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32),
+                "positions": lens}
+        _piece(f"{arch} decode step (B=4, contexts 64-2300)",
+               lambda: model.decode(params, dcache, step), reps, results)
+        del model, params, dcache, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def profile_dense(args, dev, results):
     """The dense model's pieces (the module docstring's first list)."""
     cfg = get_config(args.arch)
@@ -299,12 +407,21 @@ def main():
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parts", default="dense,mixtral,whisper,families",
+                    help="comma-separated subset of dense (the --arch "
+                         "model), mixtral, whisper, families")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     dev = resolve_device(None)
     results = {}
-    profile_dense(args, dev, results)
-    profile_mixtral(args.seed, args.reps, dev, results)
-    profile_whisper(args.seed, args.reps, dev, results)
+    if "dense" in parts:
+        profile_dense(args, dev, results)
+    if "mixtral" in parts:
+        profile_mixtral(args.seed, args.reps, dev, results)
+    if "whisper" in parts:
+        profile_whisper(args.seed, args.reps, dev, results)
+    if "families" in parts:
+        profile_families(args.seed, args.reps, dev, results)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()

@@ -1,6 +1,8 @@
-"""Model assembly: ``build_model(cfg)`` for the dense and MoE decoder
-families (full attention or a sliding window) and the audio
-encoder-decoder family (whisper).
+"""Model assembly: ``build_model(cfg)`` for every family of the
+reference: the dense and MoE decoders (full attention or a sliding
+window), the hybrid (recurrentgemma: RG-LRU and local attention), ssm
+(xLSTM) and vlm (cross-attention to image patches) families, and the
+audio encoder-decoder family (whisper).
 
 Model = embed -> Stack -> final norm -> lm head.  Parameters are nested
 dicts of tensors in the reference's layout (``embed``, ``lnf``, ``head``,
@@ -8,14 +10,18 @@ dicts of tensors in the reference's layout (``embed``, ``lnf``, ``head``,
 MoE layer's ``ffn`` is ``{ln, moe: {router, w1, w3, w2}}``, with
 ``shared_w1/w3/w2`` beside them for a shared expert; whisper has
 ``stacks/encoder/{attn,ffn}``, ``stacks/decoder/{self,cross,ffn}`` and
-``enc_lnf``), so :mod:`repro_torch.bridge` maps the reference's pytree
-onto them leaf for leaf.  The engine drives the dense and MoE models
-through the ``make_ctx``, ``embed_tokens`` and ``lm_head`` hooks and
-:func:`run_stack`; it does not serve the audio family, which runs
+``enc_lnf``; the hybrid family adds ``stacks/tail``, the trailing
+layers, and the ssm family's ``stacks/blocks/mlstm`` leaves are stacked
+twice, [groups, 7, ...]), so :mod:`repro_torch.bridge` maps the
+reference's pytree onto them leaf for leaf.  The engine drives the dense
+and MoE models through the ``make_ctx``, ``embed_tokens`` and
+``lm_head`` hooks and :func:`run_stack`; it does not serve the audio,
+hybrid, ssm and vlm families (nor does the reference's), which run
 through ``prefill`` and ``decode`` (and :meth:`Model.init_cache`).
 :class:`ModelOptions` selects the int8 KV cache (``kv_quant``; dense and
-MoE), the prefill attention's kv tile and the fused shared expert; the
-reference's other options are not ported and raise when set.
+MoE: the hybrid, ssm and vlm families keep a bf16 cache, as in the
+reference), the prefill attention's kv tile and the fused shared expert;
+the reference's other options are not ported and raise when set.
 """
 from __future__ import annotations
 
@@ -28,10 +34,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamSpec, init_tensor, rmsnorm, \
     rope_tables, sinusoid_positions
+from repro_torch.models.hybrid import hybrid_stack, hybrid_tail_stack
 from repro_torch.models.stacked import Ctx, Stack, run_stack, stack_specs, \
     tree_map
-from repro_torch.models.transformer import dense_layer_stack
+from repro_torch.models.transformer import dense_layer_stack, vlm_stack
 from repro_torch.models.whisper import decoder_stack, encoder_stack
+from repro_torch.models.xlstm import xlstm_stack
 
 PyTree = Any
 
@@ -137,19 +145,28 @@ class Model:
                                                          device=device))
 
     def init_cache(self, batch: int, cache_len: int, device=None,
-                   dtype=torch.bfloat16, fill: Optional[PyTree] = None
-                   ) -> PyTree:
-        """Zeroed decode cache of an audio model (the reference's
-        ``init_cache(batch, cache_len)``): ``{"decoder": {"self": {k, v},
-        "cross": {k, v}}}`` with self leaves [L, B, cache_len, Kv, hd] and
-        cross leaves [L, B, enc_len, Kv, hd], on ``device`` (``cuda``
-        unless given).  ``fill``, a prefill cache, is copied into its
-        leading slots, so decoding goes on past the prompt."""
-        if self.cfg.family != "audio":
-            raise ValueError("init_cache builds the audio family's cache; "
-                             "dense and moe models use paged_cache or "
-                             "row_cache")
+                   dtype=torch.bfloat16, fill=None) -> PyTree:
+        """Zeroed decode cache (the reference's ``init_cache(batch,
+        cache_len)``) on ``device`` (``cuda`` unless given), its K/V and
+        conv leaves in ``dtype`` (the recurrent states are fp32).  Audio:
+        ``{"decoder": {"self": {k, v}, "cross": {k, v}}}`` with self leaves
+        [L, B, cache_len, Kv, hd] and cross leaves [L, B, enc_len, Kv, hd];
+        ``fill``, a prefill cache, is copied into its leading slots, so
+        decoding goes on past the prompt.  Hybrid, ssm and vlm: one tree
+        per stack of its ``cache_spec`` with a leading [groups] axis
+        (attention rows [groups, B, cache_len or W, Kv, hd], contiguous;
+        a rolling row is exactly W slots); ``fill``, a prefill cache or a
+        list of them, is copied into the leading slots of consecutive
+        batch rows, the first at row 0, so prompts of other lengths,
+        prefilled apart, decode as one batch."""
         device = resolve_device(device)
+        if self.cfg.family in _SPEC_FAMILIES:
+            return _spec_cache(self.stacks, batch, cache_len, dtype, device,
+                               torch.zeros, fill)
+        if self.cfg.family != "audio":
+            raise ValueError("init_cache builds the audio, hybrid, ssm and "
+                             "vlm families' caches; dense and moe models "
+                             "use paged_cache or row_cache")
         cache = {"decoder": _audio_cache(
             self.cfg, batch, cache_len, self.enc_len,
             lambda shape: torch.zeros(shape, dtype=dtype, device=device))}
@@ -171,6 +188,48 @@ class Model:
         return self._cache((n_groups, batch, slots), dtype, None,
                            lambda shape, dt: torch.empty(shape, dtype=dt,
                                                          device=device))
+
+
+# the families whose caches follow their stacks' ``cache_spec``
+_SPEC_FAMILIES = ("hybrid", "ssm", "vlm")
+
+
+def _spec_cache(stacks: Dict[str, Stack], batch: int, cache_len: int,
+                dtype, device, make, fill=None) -> PyTree:
+    """Each stack's cache, leaves ``make(shape, dtype=, device=)`` of
+    [groups] + its ``cache_spec`` leaf; ``fill``'s caches (one or a list)
+    copied into consecutive batch rows (see :meth:`Model.init_cache`)."""
+    cache, axes = {}, {}
+    for name, st in stacks.items():
+        spec = st.cache_spec(batch, cache_len, dtype)
+        cache[name] = tree_map(lambda c: make((st.n,) + c.shape,
+                                              dtype=c.dtype, device=device),
+                               spec)
+        axes[name] = tree_map(lambda c: c.batch_axis + 1, spec)
+    row = 0
+    for part in ([] if fill is None else
+                 fill if isinstance(fill, (list, tuple)) else [fill]):
+        leaves = []
+
+        def walk(dst, src, ax):
+            if isinstance(dst, dict):
+                for kk in dst:
+                    walk(dst[kk], src[kk], ax[kk])
+            else:
+                leaves.append((dst, src, ax))
+
+        walk(cache, part, axes)
+        rows = {src.shape[ax] for _, src, ax in leaves}
+        if len(rows) != 1 or row + min(rows) > batch:
+            raise ValueError(f"a fill cache of {sorted(rows)} batch rows "
+                             f"does not fit rows {row}.. of {batch}")
+        n = rows.pop()
+        for dst, src, ax in leaves:
+            idx = [slice(0, m) for m in src.shape]
+            idx[ax] = slice(row, row + n)
+            dst[tuple(idx)] = src
+        row += n
+    return cache
 
 
 def _audio_cache(cfg: ArchConfig, batch: int, seq: int, enc_len: int,
@@ -202,9 +261,8 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
     """The model of ``cfg``.  ``enc_len`` (audio only; default 1500, the
     reference's) is the encoder length :meth:`Model.init_cache` sizes the
     cross cache for."""
-    if cfg.family not in ("dense", "moe", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1)")
+    if cfg.family not in ("dense", "moe", "audio") + _SPEC_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
     for name in _UNPORTED_OPTIONS:
         if getattr(options, name) != getattr(ModelOptions, name):
             raise NotImplementedError(
@@ -222,8 +280,21 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
         per = cfg.moe.every
         stacks = {"blocks": dense_layer_stack(cfg, cfg.num_layers // per,
                                               moe_every=per)}
+    elif cfg.family == "hybrid":
+        stacks = {"blocks": hybrid_stack(cfg)}
+        if cfg.tail_pattern:
+            stacks["tail"] = hybrid_tail_stack(cfg)
+    elif cfg.family == "ssm":
+        stacks = {"blocks": xlstm_stack(cfg)}
+    elif cfg.family == "vlm":
+        stacks = {"blocks": vlm_stack(cfg)}
     else:
         stacks = {"blocks": dense_layer_stack(cfg, cfg.num_layers)}
+    spec_family = cfg.family in _SPEC_FAMILIES
+    # the int8 cache is the dense and moe families' (the reference's
+    # build_model, repro/models/registry.py:152)
+    kv_quant = options.kv_quant and cfg.family in ("dense", "moe")
+    uses_rope = cfg.family not in ("ssm", "audio")
     d, v = cfg.d_model, cfg.vocab_size
     specs = {
         "embed": ParamSpec((v, d), "small"),
@@ -242,15 +313,18 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
                  seq_lens: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None,
                  rows: Optional[torch.Tensor] = None,
-                 enc_out: Optional[torch.Tensor] = None) -> Ctx:
+                 enc_out: Optional[torch.Tensor] = None,
+                 patches: Optional[torch.Tensor] = None) -> Ctx:
         cos = sin = None
-        if not audio:                  # whisper's positions are sinusoids
+        # whisper's positions are sinusoids; xLSTM has none
+        if uses_rope:
             cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         return Ctx(mode=mode, positions=positions, rope_cos=cos,
                    rope_sin=sin, seq_idx=seq_idx, span_starts=span_starts,
                    n_valid=n_valid, seq_lens=seq_lens,
-                   block_tables=block_tables, rows=rows, enc_out=enc_out,
-                   kv_block=options.kv_block, kv_quant=options.kv_quant,
+                   block_tables=block_tables, rows=rows, patches=patches,
+                   enc_out=enc_out, kv_block=options.kv_block,
+                   kv_quant=kv_quant,
                    fuse_shared_expert=options.fuse_shared_expert)
 
     def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -285,15 +359,36 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
                       cache)
         return lm_head(params, x[:, -1]), {"decoder": cache}
 
+    def prefill_spec(params, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        patches = batch.get("patches")
+        if cfg.family == "vlm" and patches is None:
+            raise ValueError("the vlm family's prefill needs patches "
+                             "[B, P, d]")
+        x = embed_tokens(params, tokens)
+        ctx = make_ctx("prefill", torch.arange(s, dtype=torch.int32,
+                                               device=x.device),
+                       patches=patches)
+        cache = _spec_cache(stacks, b, s, x.dtype, x.device, torch.empty)
+        for name, st in stacks.items():      # blocks, then tail
+            x = run_stack(st, params["stacks"][name], x, ctx, cache[name])
+        return lm_head(params, x[:, -1]), cache
+
     def prefill(params, batch):
         """batch: ``tokens`` [B, S].  Returns the logits of each row's
         last token [B, V] and ``{"blocks": cache}``, the prompt's K/V
         (int8 with scales under ``kv_quant``) as leaves [groups, B, S or
         W, ...].  Audio: batch also holds ``frames`` [B, Se, d], and the
         cache is ``{"decoder": {"self": {k, v}, "cross": {k, v}}}``, self
-        leaves [L, B, S, Kv, hd] and cross leaves [L, B, Se, Kv, hd]."""
+        leaves [L, B, S, Kv, hd] and cross leaves [L, B, Se, Kv, hd].
+        Hybrid, ssm and vlm (an unpadded batch; vlm: batch also holds
+        ``patches`` [B, P, d]): the cache is :meth:`Model.init_cache`'s
+        tree at cache_len S, holding the state after the prompt."""
         if audio:
             return prefill_audio(params, batch)
+        if spec_family:
+            return prefill_spec(params, batch)
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = embed_tokens(params, tokens)
@@ -310,15 +405,23 @@ def build_model(cfg: ArchConfig, options: ModelOptions = ModelOptions(),
         ``block_tables`` [B, nb] int32, with ``cache`` as :meth:`Model.
         paged_cache`, or None, with ``cache`` the batch's B rows as
         :meth:`Model.row_cache` makes them; all layers, updated in
-        place.  Audio: no ``block_tables``; ``cache`` as :meth:`Model.
-        init_cache` (or prefill) makes it, row b of the self cache written
-        at ``positions[b]``."""
+        place.  Audio, hybrid, ssm and vlm: no ``block_tables``; ``cache``
+        as :meth:`Model.init_cache` (or prefill) makes it, row b of each
+        attention layer's rows written at ``positions[b]`` (``% W``
+        rolling)."""
         if audio:
             positions = batch["positions"]
             x = embed_tokens(params, batch["token"]) \
                 + _sinusoid_at(positions, d)
             x = run_stack(stacks["decoder"], params["stacks"]["decoder"], x,
                           make_ctx("decode", positions), cache["decoder"])
+            return lm_head(params, x), cache
+        if spec_family:
+            x = embed_tokens(params, batch["token"])
+            ctx = make_ctx("decode", batch["positions"])
+            for name, st in stacks.items():
+                x = run_stack(st, params["stacks"][name], x, ctx,
+                              cache[name])
             return lm_head(params, x), cache
         x = embed_tokens(params, batch["token"])
         ctx = make_ctx("decode", batch["positions"],

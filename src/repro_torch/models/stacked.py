@@ -8,7 +8,7 @@ scans over that axis, the port loops in Python.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -43,6 +43,9 @@ class Ctx:
     # row [B] int32 in the [R, S, ...] leaves, read and written in place
     # (None: the cache holds exactly the batch's rows, in order)
     rows: Optional[torch.Tensor] = None
+    # vlm: the image patch embeddings [B, P, d] the cross-attention layers
+    # read at prefill (the stubbed vision tower's output)
+    patches: Optional[torch.Tensor] = None
     # whisper: the encoder's output [B, Se, d], which the decoder's
     # cross-attention reads at prefill
     enc_out: Optional[torch.Tensor] = None
@@ -54,16 +57,31 @@ class Ctx:
     fuse_shared_expert: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """One layer group's cache leaf: its shape, dtype and which axis of
+    the shape is the batch's."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    batch_axis: int = 0
+
+
 @dataclasses.dataclass
 class Stack:
     """``apply(group_params, x, ctx, cache_group) -> x``; the group's
     cache is updated in place (in prefill mode it receives the group's
-    fresh K/V: ``Model.prefill_cache`` allocates it).  A stack without a
-    cache (the whisper encoder) gets ``cache_group`` None."""
+    fresh state or K/V: ``Model.prefill_cache`` allocates it, or, for the
+    hybrid, ssm and vlm families, ``Model.prefill`` from ``cache_spec``).
+    A stack without a cache (the whisper encoder) gets ``cache_group``
+    None.  ``cache_spec(batch, cache_len, dtype)``, where given, is one
+    group's cache tree of :class:`CacheSpec` leaves, as the reference's
+    ``Stack.cache_spec``."""
 
     n: int
     specs: PyTree
     apply: Callable
+    cache_spec: Optional[Callable] = None
 
 
 def tree_map(fn, tree):

@@ -1,6 +1,6 @@
 """Decoder blocks: self-attention over a paged or contiguous KV cache +
 SwiGLU or a sparse MoE FFN (with llama4's shared expert); gated
-cross-attention to an encoder's output.
+cross-attention to an encoder's output or to image patches.
 
 Ports ``repro.models.transformer`` for the ``dense`` and ``moe`` families
 in the ``prefill``, ``decode`` and ``chunk`` modes with the paged layout
@@ -10,7 +10,9 @@ or the int8 cache
 cache (slot = position % W); and the blocks the whisper family
 (``repro_torch.models.whisper``) adds: non-causal, RoPE-free
 self-attention without a cache (the encoder, ``train`` mode) and
-``cross_attn_block``.  Attention runs through the hand-written
+``cross_attn_block``; and the vlm family's ``vlm_stack``: groups of
+self-attention layers over contiguous rows and one cross-attention layer
+to the stubbed vision tower's patches.  Attention runs through the hand-written
 kernels (``repro_torch.kernels``); the projections, the MLP and the
 experts are plain matrix products, as the reference leaves them to XLA.
 """
@@ -40,7 +42,7 @@ from repro_torch.models.attention import (fill_rolling_cache,
                                           quantize_kv)
 from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
 from repro_torch.models.moe import moe_ffn, moe_specs
-from repro_torch.models.stacked import Ctx, Stack
+from repro_torch.models.stacked import CacheSpec, Ctx, Stack
 
 
 def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -270,8 +272,10 @@ def _cache_entries(k: torch.Tensor, v: torch.Tensor, quant: bool):
 
 def cross_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
                      cfg: ArchConfig) -> torch.Tensor:
-    """Gated cross-attention to ``ctx.enc_out`` [B, Se, d]; the gate's
-    arithmetic runs in fp32, as in the reference.
+    """Gated cross-attention to a memory [B, Se, d]: ``ctx.patches`` (the
+    vlm family's image patches) when set, else ``ctx.enc_out`` (whisper's
+    encoder output); the gate's arithmetic runs in fp32, as in the
+    reference.
     prefill (and train): x [B, S, d]; the memory's K/V (after ``ln_kv``)
     through the non-causal flash kernel; in prefill ``cache`` leaves
     ``{"k", "v"}`` [B, Se, Kv, hd] receive them.
@@ -289,7 +293,7 @@ def cross_attn_block(p, x: torch.Tensor, ctx: Ctx, cache,
         o = contiguous_decode_attention(q, cache["k"], cache["v"], rows,
                                         last)
     else:
-        mem = ctx.enc_out
+        mem = ctx.patches if ctx.patches is not None else ctx.enc_out
         m = rmsnorm(mem, p["ln_kv"], cfg.norm_eps)
         k = (m @ p["wk"]).reshape(*mem.shape[:-1], cfg.num_kv_heads, hd)
         v = (m @ p["wv"]).reshape(*mem.shape[:-1], cfg.num_kv_heads, hd)
@@ -361,3 +365,52 @@ def dense_layer_stack(cfg: ArchConfig, n: int, *, moe_every: int = 0) -> Stack:
         return x
 
     return Stack(n, specs, apply)
+
+
+def self_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
+                    dtype) -> Dict[str, CacheSpec]:
+    """One attention layer's contiguous cache rows ``{"k", "v"}`` [B, S,
+    Kv, hd]: S = ``cache_len``, or W for a windowed model (a rolling row
+    is exactly W slots, as the decode indexes slots by position % W)."""
+    leaf = CacheSpec((batch, cfg.window or cache_len, cfg.num_kv_heads,
+                      cfg.resolved_head_dim), dtype)
+    return {"k": leaf, "v": leaf}
+
+
+def vlm_stack(cfg: ArchConfig) -> Stack:
+    """Groups of ``cross_attn_every`` self-attention layers (``self<i>``,
+    each {attn, ffn}) and one gated cross-attention layer (``cross``) to
+    the image patches; each group's cache is ``{"self<i>": {k, v},
+    "cross": {k, v}}``, the cross leaves [B, cfg_n_patches, Kv, hd]."""
+    per = cfg.cross_attn_every
+    n = cfg.num_layers // (per + 1)
+    if n * (per + 1) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: a vlm's layer count must be a "
+                         f"multiple of cross_attn_every + 1 = {per + 1}")
+    specs = {f"self{i}": {"attn": attn_specs(cfg), "ffn": mlp_specs(cfg)}
+             for i in range(per)}
+    specs["cross"] = {"attn": cross_attn_specs(cfg), "ffn": mlp_specs(cfg)}
+
+    def apply(gp, x, ctx: Ctx, cache_g):
+        for i in range(per):
+            lp = gp[f"self{i}"]
+            x = self_attn_block(lp["attn"], x, ctx, cache_g[f"self{i}"], cfg)
+            x = mlp_block(lp["ffn"], x, cfg)
+        x = cross_attn_block(gp["cross"]["attn"], x, ctx, cache_g["cross"],
+                             cfg)
+        return mlp_block(gp["cross"]["ffn"], x, cfg)
+
+    def cache_spec(batch: int, cache_len: int, dtype):
+        c = {f"self{i}": self_cache_spec(cfg, batch, cache_len, dtype)
+             for i in range(per)}
+        leaf = CacheSpec((batch, cfg_n_patches(cfg), cfg.num_kv_heads,
+                          cfg.resolved_head_dim), dtype)
+        c["cross"] = {"k": leaf, "v": leaf}
+        return c
+
+    return Stack(n, specs, apply, cache_spec)
+
+
+def cfg_n_patches(cfg: ArchConfig) -> int:
+    """Stubbed vision frontend: 4 tiles x 40x40 patches = 6400."""
+    return 6400

@@ -287,7 +287,9 @@ def test_unported_configurations_raise(models):
     # windowed and MoE models run (tests/test_torch_moe.py); a window that
     # is not a block multiple takes contiguous rolling rows under the
     # default layout, as in the reference.  What still raises: the hybrid
-    # family.  A shared expert, fused or not, is served
+    # family, which builds and runs through the model API
+    # (tests/test_torch_families.py).  A shared expert, fused or not, is
+    # served
     # (tests/test_torch_configs.py)
     windowed = build_model(dataclasses.replace(get_config(ARCH), window=20))
     eng = engine.SiPipeEngine(windowed, params, engine.EngineConfig())
@@ -298,8 +300,10 @@ def test_unported_configurations_raise(models):
         engine.SiPipeEngine(dataclasses.replace(
             model, cfg=dataclasses.replace(model.cfg, family="hybrid")),
             params, engine.EngineConfig())
+    hybrid = build_model(get_config("recurrentgemma-9b-smoke"))
     with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(dataclasses.replace(get_config(ARCH), family="hybrid"))
+        engine.SiPipeEngine(hybrid, hybrid.init(0, device="cpu"),
+                            engine.EngineConfig())
     moe = get_config("mixtral-8x7b-smoke")
     shared = build_model(dataclasses.replace(
         moe, moe=dataclasses.replace(moe.moe, shared=True)),

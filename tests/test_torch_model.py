@@ -390,9 +390,10 @@ def test_bridge_serves_the_int8_cache_model(models):
 
 
 def test_unported_paths_raise(models):
-    """What stays unported raises: the reference's other model options
-    and families other than dense, moe and audio.  (The audio family runs:
-    tests/test_torch_whisper.py.  The MoE family and windowed attention
+    """What stays unported raises: the reference's other model options;
+    a family the reference does not know raises as in the reference.
+    (The audio family runs: tests/test_torch_whisper.py; the hybrid, ssm
+    and vlm families: tests/test_torch_families.py.  The MoE family and windowed attention
     run: tests/test_torch_moe.py; a shared expert and its fused form
     (``fuse_shared_expert``) run: tests/test_torch_configs.py; the
     contiguous cache layout runs, checked here and in
@@ -405,8 +406,8 @@ def test_unported_paths_raise(models):
     build_model(cfg, ModelOptions(fuse_shared_expert=True))
     with pytest.raises(NotImplementedError, match="remat"):
         build_model(cfg, ModelOptions(remat=False))
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.__class__(**{**cfg.__dict__, "family": "ssm"}))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg.__class__(**{**cfg.__dict__, "family": "rnn"}))
     with pytest.raises(ValueError, match="MoEConfig"):
         build_model(cfg.__class__(**{**cfg.__dict__, "family": "moe"}))
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32))

@@ -399,9 +399,9 @@ def test_frames_reach_the_logits_in_both_packages():
 
 
 def test_full_enc_len_cache_and_refusals():
-    """``enc_len`` defaults to the reference's 1500; the int8 cache, other
-    families and a dense init_cache raise; the engine refuses the audio
-    family, as the reference's cannot serve it."""
+    """``enc_len`` defaults to the reference's 1500; the int8 cache, an
+    unknown family and a dense init_cache raise; the engine refuses the
+    audio family, as the reference's cannot serve it."""
     from repro_torch.core.engine import EngineConfig, SiPipeEngine
     cfg = get_config(ARCH)
     model = build_model(cfg)
@@ -412,8 +412,8 @@ def test_full_enc_len_cache_and_refusals():
     assert cache["decoder"]["self"]["v"].shape[2] == 8
     with pytest.raises(NotImplementedError, match="kv_quant"):
         build_model(cfg, ModelOptions(kv_quant=True))
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.__class__(**{**cfg.__dict__, "family": "vlm"}))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg.__class__(**{**cfg.__dict__, "family": "video"}))
     with pytest.raises(ValueError, match="audio"):
         build_model(get_config("stablelm-1.6b-smoke")).init_cache(1, 8,
                                                                   device="cpu")
